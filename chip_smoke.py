@@ -6,20 +6,28 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
 
   device   the card (`torch.cuda.get_device_name`, nvidia-smi name and
            power limit); no card -> exit 2 before anything else
-  build    nvcc builds the four kernels from `maskrcnn_tpu_torch/csrc`
-  K1..K4   each kernel against its plain PyTorch version on the card at the
-           main path's shapes (R101-FPN @ 1024^2, batch --batch), with its
+  build    nvcc builds the six kernels from `maskrcnn_tpu_torch/csrc`
+  K1..K6   each kernel against its plain PyTorch version on the card at the
+           main paths' shapes (R101-FPN @ 1024^2, batch --batch), with its
            time, the plain version's time, the least time the card could
            take (`bound_ms`) and, where one PyTorch call computes the same
-           function, that call's time (`library_ms`, never used by the port)
+           function, that call's time (`library_ms`, never used by the port;
+           for K5 and K6 the unfused route, K2 and then the head, several
+           calls)
   small    the detector forward on the card against the same forward on the
            CPU (plain path), tiny config in float32
   e2e      `MaskRCNNDetector.detect_images` at R101-FPN @ 1024^2, 81 classes,
            bf16, random weights from --seed with BN statistics drawn from the
            seed, over 4 letterboxed images of mixed sizes, batch 2: once at
            the default thresholds, once with the score threshold at 0 so
-           100 detections per image reach the mask branch (the main path:
-           the launch counts are zeroed just before it and read just after)
+           100 detections per image reach the mask branch (the first main
+           path: the launch counts are zeroed just before it and read just
+           after; it must launch K1..K4)
+  stream   `run_stream` with the fused heads (K5, K6) and on-device mask
+           paste at 1024^2, score threshold 0, over 16 synthetic frames
+           in micro-batches of --batch (the second main path, counted
+           the same way: K5 and K6 once per forward, K2 never), then one
+           profiled forward
 
 then a `kernels` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
@@ -245,6 +253,92 @@ def distinct_cells(ys, xs, level, valid, n, hw):
 
 
 # --------------------------------------------------------------------------
+# K5 pool-7 + classifier head, K6 pool-14 + mask head
+# --------------------------------------------------------------------------
+
+def check_fused_heads(dev, rng, batch, pyramid, params):
+    from maskrcnn_tpu_torch.models import heads
+    from maskrcnn_tpu_torch.ops import roi_align as ra
+    from maskrcnn_tpu_torch.ops import roi_align_cuda as rac
+    hw = [(f.shape[1], f.shape[2]) for f in pyramid]
+    c = pyramid[0].shape[-1]
+    nc = 81
+    bf16 = torch.bfloat16
+    rows = []
+
+    n = 1000
+    rois = spread_rois(rng, batch, n).to(dev)
+    prep = ra.prepare(rois.reshape(-1, 4), hw, (1024, 1024), 224.0, 7)
+    head = rac.pack_classifier_head(params, nc, bf16)
+    args = (pyramid, *prep, n, head)
+    want = rac.classifier_head_plain(*args)
+    got = rac.roi_classifier_head(*args)
+    lanes = torch.cat([torch.arange(nc), torch.arange(128, 128 + 4 * nc)])
+    err = (got - want)[:, lanes].abs().max().item()
+    # h1, h2 rounded to bf16 at the same points after float32 sums in
+    # another order: an ulp of a hidden unit moves the outputs by far less
+    # than 2% of their largest value; the class argmax may flip only where
+    # two logits nearly tie
+    tol = 0.02 * want[:, lanes].abs().max().item()
+    argmax_same = (got[:, :nc].argmax(1) == want[:, :nc].argmax(1)
+                   ).float().mean().item()
+    ms = cuda_ms(lambda: rac.roi_classifier_head(*args), 20)
+    plain_ms = cuda_ms(lambda: rac.classifier_head_plain(*args), 3)
+    library_ms = cuda_ms(lambda: heads.apply_classifier_head(
+        params, rac.roi_align(pyramid, *prep, n), nc, dtype=bf16), 20)
+    m = batch * n
+    k1, n1 = head["w1"].shape
+    n2, n3 = head["w2"].shape[1], head["w3"].shape[1]
+    cells = distinct_cells(*prep, n, hw)
+    moved = (nbytes(*head.values()) + cells * c * pyramid[0].element_size()
+             + nbytes(got, *prep))
+    rows.append(record(
+        "K5_roi_classifier_head", "cuda",
+        "maskrcnn_tpu_torch/csrc/roi_classifier_head.cu",
+        "maskrcnn_tpu/ops/roi_align_pallas.py:716", ms, plain_ms, err,
+        tol, bound(moved, 2.0 * m * (k1 * n1 + n1 * n2 + n2 * n3),
+                   BF16_FLOPS), library_ms,
+        {"rois": [batch, n], "widths": [k1, n1, n2, n3],
+         "argmax_same": argmax_same, "argmax_tol": 0.995,
+         "kernel_launches_per_call": 3, "distinct_cells": cells,
+         "library": "K2 pool 7, then models/heads.py (cuBLAS): several "
+                    "calls", "plain_max_abs": want.abs().max().item()},
+        ok=err <= tol and argmax_same >= 0.995))
+
+    n = 100
+    rois = spread_rois(rng, batch, n).to(dev)
+    prep = ra.prepare(rois.reshape(-1, 4), hw, (1024, 1024), 224.0, 14)
+    mask = rac.pack_mask_head(params, bf16)
+    ids = torch.from_numpy(rng.integers(1, nc, batch * n)
+                           .astype(np.int32)).to(dev)
+    args = (pyramid, *prep, n, mask, ids)
+    want = rac.mask_head_plain(*args)
+    got = rac.roi_mask_head(*args)
+    err = (got - want).abs().max().item()
+    ms = cuda_ms(lambda: rac.roi_mask_head(*args), 10)
+    plain_ms = cuda_ms(lambda: rac.mask_head_plain(*args), 3)
+    library_ms = cuda_ms(lambda: heads.apply_mask_head(
+        params, rac.roi_align(pyramid, *prep, n), dtype=bf16,
+        class_ids=ids), 10)
+    m = batch * n
+    flops = 2.0 * m * 196 * (4 * 9 * c * c + c * 4 * c)
+    cells = distinct_cells(*prep, n, hw)
+    moved = (nbytes(*mask.values()) + cells * c * pyramid[0].element_size()
+             + nbytes(got, ids, *prep))
+    # four bf16 activation roundings after float32 sums in another order,
+    # then a sigmoid (slope at most 1/4)
+    rows.append(record(
+        "K6_roi_mask_head", "cuda", "maskrcnn_tpu_torch/csrc/roi_mask_head.cu",
+        "maskrcnn_tpu/ops/roi_align_pallas.py:716", ms, plain_ms, err, 1e-2,
+        bound(moved, flops, BF16_FLOPS), library_ms,
+        {"rois": [batch, n], "blocks": m, "distinct_cells": cells,
+         "library": "K2 pool 14, then models/heads.py (cuDNN convs, "
+                    "einsum select): several calls",
+         "mean_abs_err": (got - want).abs().mean().item()}))
+    return rows
+
+
+# --------------------------------------------------------------------------
 # K3 stem, K4 bottleneck chains
 # --------------------------------------------------------------------------
 
@@ -372,22 +466,29 @@ def check_small_forward(dev, seed):
         raise AssertionError("forward on the card disagrees with the CPU")
 
 
-KERNEL_GROUPS = (("K1 nms", "nms_kernel"), ("K2 roi_align", "roi_align_kernel"),
-                 ("K3 stem", "stem_kernel"),
-                 ("K4 bottleneck", "bottleneck_kernel"))
+KERNEL_GROUPS = (("K1 nms", ("nms_kernel",)),
+                 ("K2 roi_align", ("roi_align_kernel",)),
+                 ("K3 stem", ("stem_kernel",)),
+                 ("K4 bottleneck", ("bottleneck_kernel",)),
+                 ("K5 roi_classifier_head", ("pool_dense1_kernel",
+                                             "dense_kernel")),
+                 ("K6 roi_mask_head", ("mask_head_kernel",)))
+E2E_KERNELS = ("nms", "roi_align", "stem", "bottleneck")
+STREAM_KERNELS = ("nms", "stem", "bottleneck", "roi_classifier_head",
+                  "roi_mask_head")
 
 
-def profile_forward(detector, canvases) -> dict:
+def profile_forward(detector, canvases, paste_size=None) -> dict:
     """Device time of one forward batch by kernel (torch.profiler): the
-    four port kernels, the rest by name, and the device's busy share of the
+    port kernels, the rest by name, and the device's busy share of the
     wall time."""
     from torch.profiler import ProfilerActivity, profile
-    detector.run_batch(canvases)
+    detector.run_batch(canvases, paste_size=paste_size)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        detector.run_batch(canvases)
+        detector.run_batch(canvases, paste_size=paste_size)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -400,8 +501,8 @@ def profile_forward(detector, canvases) -> dict:
             rows.append((ev.key, us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    groups = {g: sum(r[1] for r in rows if key in r[0])
-              for g, key in KERNEL_GROUPS}
+    groups = {g: sum(r[1] for r in rows if any(k in r[0] for k in keys))
+              for g, keys in KERNEL_GROUPS}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms if wall_ms else None,
             "port_kernels_ms": groups, "device_kernels": len(rows),
@@ -476,9 +577,89 @@ def e2e(dev, seed, batch):
     if min(n_low) != cfg.max_detections:
         raise AssertionError(f"expected {cfg.max_detections} detections per "
                              f"image at score threshold 0, got {n_low}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in E2E_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    return launches
+
+
+def stream(dev, seed, batch, frames=16):
+    """`run_stream` through the fused heads with on-device paste."""
+    from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.ops import cuda_lib
+    from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
+    from maskrcnn_tpu_torch.pipeline.stream import (run_stream,
+                                                    synthetic_frames)
+    cfg = MaskRCNNConfig(fuse_classifier_head=True, fuse_mask_head=True,
+                         detection_score_threshold=0.0)
+    gen = torch.Generator().manual_seed(seed)
+    params = M.init_mask_rcnn(gen, cfg)
+    live_bn(params, gen)
+    det = MaskRCNNDetector(cfg, params, device=dev)
+    size = cfg.image_height
+    warm = np.stack(list(synthetic_frames(batch, size, seed + 1)))
+    det.run_batch(warm, paste_size=size)                      # warm-up
+    torch.cuda.synchronize()
+    last = {}
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    stats = run_stream(det, synthetic_frames(frames, size, seed),
+                       on_result=lambda i, out: last.update(out=out),
+                       micro_batch=batch, paste_size=size,
+                       latency_probes=10, sync_every=8)   # main path
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    peak = torch.cuda.max_memory_allocated()
+    forwards = -(-frames // batch) + stats.latency_probes
+
+    out = last["out"]
+    pasted = out["pasted"]
+    boxes = out["detections"][..., :4]
+    centers = (torch.arange(size, dtype=torch.float32, device=dev)
+               + 0.5) / size
+    in_y = (centers >= boxes[..., 0:1]) & (centers <= boxes[..., 2:3])
+    in_x = (centers >= boxes[..., 1:2]) & (centers <= boxes[..., 3:4])
+    outside = int((pasted.bool()
+                   & ~(in_y[..., :, None] & in_x[..., None, :])).sum())
+    finite = {k: bool(torch.isfinite(out[k].float()).all())
+              for k in ("detections", "masks")}
+    n_valid = out["valid"].sum(1).tolist()
+    profile = profile_forward(det, torch.from_numpy(warm).to(dev), size)
+    emit({"phase": "stream", "config": "resnet101 1024x1024x3, 81 classes, "
+          "bf16, fuse_classifier_head + fuse_mask_head, score threshold 0",
+          "frames": stats.frames, "micro_batch": batch, "paste_size": size,
+          "fps": stats.fps, "wall_s": stats.wall_s,
+          "p50_latency_ms": stats.p50_latency_ms,
+          "p95_latency_ms": stats.p95_latency_ms,
+          "p99_latency_ms": stats.p99_latency_ms,
+          "latency_probes": stats.latency_probes, "forwards": forwards,
+          "max_memory_allocated_bytes": peak, "launches": launches,
+          "pasted": [list(pasted.shape), str(pasted.dtype)],
+          "pasted_pixels_set": int(pasted.sum()),
+          "pasted_pixels_outside_box": outside, "valid": n_valid,
+          "finite": finite, "profile": profile})
+    tail = frames - batch * (-(-frames // batch) - 1)   # last batch's size
+    if tuple(pasted.shape) != (tail, cfg.max_detections, size, size) \
+            or pasted.dtype != torch.uint8:
+        raise AssertionError(f"pasted is {tuple(pasted.shape)} "
+                             f"{pasted.dtype}")
+    if outside or not all(finite.values()):
+        raise AssertionError(f"{outside} pasted pixels outside their box, "
+                             f"finite {finite}")
+    if min(n_valid) != cfg.max_detections:
+        raise AssertionError(f"expected {cfg.max_detections} detections "
+                             f"per image at score threshold 0: {n_valid}")
+    if launches["roi_align"]:
+        raise AssertionError("the fused path launched K2 "
+                             f"{launches['roi_align']} times")
+    missing = [k for k in STREAM_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"stream path never launched {missing}")
+    for k in ("roi_classifier_head", "roi_mask_head"):
+        if launches[k] != forwards:
+            raise AssertionError(f"{k} launched {launches[k]} times in "
+                                 f"{forwards} forwards")
     return launches
 
 
@@ -520,6 +701,7 @@ def main() -> int:
         (args.batch, s, s, 256)).astype(np.float32)).to(dev)
         .to(torch.bfloat16) for s in (256, 128, 64, 32)]
     rows += check_roi_align(dev, rng, args.batch, pyramid)
+    rows += check_fused_heads(dev, rng, args.batch, pyramid, params)
     del pyramid
     rows += check_stem(dev, rng, args.batch, params)
     rows += check_chains(dev, rng, args.batch, params)
@@ -528,10 +710,16 @@ def main() -> int:
 
     check_small_forward(dev, args.seed)
     launches = e2e(dev, args.seed, args.batch)
+    torch.cuda.empty_cache()
+    launches_stream = stream(dev, args.seed, args.batch)
 
-    family = {"K1": "nms", "K2": "roi_align", "K3": "stem", "K4": "bottleneck"}
+    family = {"K1": "nms", "K2": "roi_align", "K3": "stem", "K4": "bottleneck",
+              "K5": "roi_classifier_head", "K6": "roi_mask_head"}
     for row in rows:
-        row["launches"] = launches[family[row["name"][:2]]]
+        key = family[row["name"][:2]]
+        row["launches"] = (launches_stream if key in ("roi_classifier_head",
+                                                      "roi_mask_head")
+                           else launches)[key]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,8 +3,12 @@
 Field for field the same dataclass as `maskrcnn_tpu/core/config.py`, so a
 config dict or JSON file means the same model in both packages. The port
 reads the same fields; where a field names a TPU-only mechanism
-(`proposal_topk_recall`, `fuse_*`, `train_*`) the port keeps it for schema
-compatibility, and its documentation below is the JAX package's.
+(`proposal_topk_recall`, `train_*`) the port keeps it for schema
+compatibility, and its documentation below is the JAX package's. The
+`fuse_*` flags are read: in the port they select the fused ROIAlign heads
+wherever they are set, the CUDA kernels K5 (`fuse_classifier_head`) and K6
+(`fuse_mask_head`, pool 14) on the card, bfloat16 only, and their plain
+versions on the CPU (`models/mask_rcnn.py::forward`).
 
 One frozen dataclass replaces the reference's three config tiers (SURVEY.md §5):
 the JSON model config (reference `README.md:85-92`, loaded at

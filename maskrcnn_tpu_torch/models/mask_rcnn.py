@@ -2,13 +2,22 @@
 
 preprocess -> ResNet (stem K3, chains K4) -> FPN P2..P6 -> RPN -> proposals
 (NMS K1) -> pool-7 ROIAlign (K2) -> classifier head -> detection refine
-(NMS K1) -> pool-14 ROIAlign (K2) -> mask head with per-class select.
+(NMS K1) -> pool-14 ROIAlign (K2) -> mask head with per-class select
+[-> on-device mask paste].
+
+With `config.fuse_classifier_head` the pool-7 ROIAlign and the classifier
+head run as one kernel (K5), and with `config.fuse_mask_head` (pool 14)
+the pool-14 ROIAlign and the mask head (K6): on the card in bfloat16
+(a float32 config raises there), on the CPU as their plain versions. Unlike
+the JAX package, which fuses only on a TPU, the port takes the fused route
+wherever the flags are set.
 
 Output contract of the JAX `_forward`: `detections` (B, D, 6) rows
 (y1, x1, y2, x2, class_id, score) normalized and zero-padded, `masks`
 (B, D, 28, 28) float32, `valid` (B, D), `rois` / `roi_valid`
-(B, max_proposals, ...), and with `with_features` also `rpn_logits`,
-`rpn_deltas`, `pyramid`.
+(B, max_proposals, ...), with `paste_size` also `pasted` (B, D, S, S)
+uint8, and with `with_features` also `rpn_logits`, `rpn_deltas`,
+`pyramid`.
 
 Parameters are one flat dict {layer: {weight: tensor}} keyed by Matterport
 layer names, kernels HWIO; `io/weights.py::params_from_numpy` builds it
@@ -27,6 +36,10 @@ from maskrcnn_tpu_torch.models import fpn, heads, resnet, rpn
 from maskrcnn_tpu_torch.ops.detection import refine_detections
 from maskrcnn_tpu_torch.ops.proposals import generate_proposals
 from maskrcnn_tpu_torch.ops.roi_align import pyramid_roi_align
+from maskrcnn_tpu_torch.ops.roi_align_cuda import (pack_classifier_head,
+                                                   pack_mask_head,
+                                                   unpack_classifier_head)
+from maskrcnn_tpu_torch.pipeline.paste import paste_masks
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -95,15 +108,24 @@ def backbone_fpn(params, images: torch.Tensor, config: MaskRCNNConfig,
 
 @torch.no_grad()
 def forward(params, images, config: MaskRCNNConfig,
-            with_features: bool = False, device=None
-            ) -> dict[str, torch.Tensor]:
-    """(B, H, W, 3) RGB [0, 255] letterboxed images (tensor or array) ->
-    detections + masks, computed on `device` (default: the card; raises
-    where there is none)."""
+            with_features: bool = False, device=None,
+            paste_size: int | None = None) -> dict[str, torch.Tensor]:
+    """(B, H, W, 3) RGB [0, 255] letterboxed images (tensor or array, any
+    real dtype) -> detections + masks, computed on `device` (default: the
+    card; raises where there is none). `paste_size` also pastes
+    full-resolution uint8 masks on the device (`out["pasted"]`)."""
     dev = resolve_device(device)
+    dtype = compute_dtype(config)
+    fuse_cls = config.fuse_classifier_head
+    fuse_mask = config.fuse_mask_head and config.mask_pool_size == 14
+    if (fuse_cls or fuse_mask) and dev.type == "cuda" \
+            and dtype != torch.bfloat16:
+        raise ValueError(
+            "the fused ROI heads (fuse_classifier_head / fuse_mask_head) "
+            "run in bfloat16 on the card; got compute_dtype="
+            f"{config.compute_dtype!r}")
     images = torch.as_tensor(images).to(dev)
     params = params_to(params, dev)
-    dtype = compute_dtype(config)
     b = images.shape[0]
     image_hw = (config.image_height, config.image_width)
 
@@ -126,11 +148,20 @@ def forward(params, images, config: MaskRCNNConfig,
 
     r = config.max_proposals
     levels = list(pyramid[:4])
-    pooled = pyramid_roi_align(levels, rois, config.pool_size, image_hw,
-                               config.roi_canonical_scale)
-    probs, deltas = heads.apply_classifier_head(
-        params, pooled.reshape((b * r,) + pooled.shape[2:]),
-        config.num_classes, dtype=dtype)
+    align = dict(image_shape=image_hw,
+                 canonical_scale=config.roi_canonical_scale)
+    if fuse_cls:
+        head_out = pyramid_roi_align(
+            levels, rois, config.pool_size, **align,
+            head_params=pack_classifier_head(params, config.num_classes,
+                                             dtype))
+        probs, deltas, _ = unpack_classifier_head(head_out,
+                                                  config.num_classes)
+    else:
+        pooled = pyramid_roi_align(levels, rois, config.pool_size, **align)
+        probs, deltas = heads.apply_classifier_head(
+            params, pooled.reshape((b * r,) + pooled.shape[2:]),
+            config.num_classes, dtype=dtype)
     probs = probs.reshape(b, r, -1)
     deltas = deltas.reshape(b, r, config.num_classes, 4)
 
@@ -143,16 +174,24 @@ def forward(params, images, config: MaskRCNNConfig,
     d = config.max_detections
     det_boxes = detections[..., :4]
     class_ids = detections[..., 4].to(torch.int64)
-    mask_pooled = pyramid_roi_align(levels, det_boxes, config.mask_pool_size,
-                                    image_hw, config.roi_canonical_scale)
-    masks = heads.apply_mask_head(
-        params, mask_pooled.reshape((b * d,) + mask_pooled.shape[2:]),
-        dtype=dtype, class_ids=class_ids.reshape(b * d))
+    if fuse_mask:
+        masks = pyramid_roi_align(levels, det_boxes, config.mask_pool_size,
+                                  **align,
+                                  mask_params=pack_mask_head(params, dtype),
+                                  class_ids=class_ids)
+    else:
+        mask_pooled = pyramid_roi_align(levels, det_boxes,
+                                        config.mask_pool_size, **align)
+        masks = heads.apply_mask_head(
+            params, mask_pooled.reshape((b * d,) + mask_pooled.shape[2:]),
+            dtype=dtype, class_ids=class_ids.reshape(b * d))
     masks = masks.reshape(b, d, config.mask_size, config.mask_size)
     masks = masks * det_valid[:, :, None, None].to(masks.dtype)
 
     out = {"detections": detections, "masks": masks, "valid": det_valid,
            "rois": rois, "roi_valid": roi_valid}
+    if paste_size is not None:
+        out["pasted"] = paste_masks(masks, det_boxes, det_valid, paste_size)
     if with_features:
         out.update(rpn_logits=rpn_logits, rpn_deltas=rpn_deltas,
                    pyramid=pyramid)

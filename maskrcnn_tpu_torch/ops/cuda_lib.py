@@ -25,7 +25,9 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD = os.path.join(os.path.dirname(os.path.dirname(__file__)), "build")
-SOURCES = ("nms.cu", "roi_align.cu", "stem.cu", "bottleneck.cu")
+SOURCES = ("nms.cu", "roi_align.cu", "stem.cu", "bottleneck.cu",
+           "roi_classifier_head.cu", "roi_mask_head.cu")
+HEADERS = ("roi_head_common.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 # Per-source extra flags. NMS must equal the sequential greedy bit for bit:
@@ -33,7 +35,8 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 # __fmul_rn / __fadd_rn, this is the second guard).
 EXTRA_FLAGS = {"nms.cu": ("-fmad=false",)}
 
-launches = {"nms": 0, "roi_align": 0, "stem": 0, "bottleneck": 0}
+launches = {"nms": 0, "roi_align": 0, "stem": 0, "bottleneck": 0,
+            "roi_classifier_head": 0, "roi_mask_head": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -58,7 +61,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     h.update(repr((ARCH, COMMON_FLAGS, EXTRA_FLAGS)).encode())
@@ -100,11 +103,15 @@ def _build(lib_path: str, verbose: bool) -> None:
 
 def _declare(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # four level pointers, their (H, W), C, ys, xs, level, valid, M,
+    # rois_per_image, P: the pool's arguments (roi_align_cuda._pool_args)
+    pool = [p] * 4 + [i] * 9 + [p] * 4 + [i] * 3
     sig = {
         "mrt_nms_keep": [p, p, p, i, i, f, i, i, p],
         "mrt_nms_max_boxes": [i],
-        "mrt_roi_align": [p, p, p, p, i, i, i, i, i, i, i, i, i,
-                          p, p, p, p, i, i, i, i, p, p],
+        "mrt_roi_align": pool + [i, p, p],
+        "mrt_roi_classifier_head": pool + [p, p, i] * 3 + [p, p, p, p],
+        "mrt_roi_mask_head": pool + [p] * 7 + [i, p, p],
         "mrt_stem": [p, p, p, p, i, i, i, p],
         "mrt_bottleneck": [p, p, p, p, p, p, p, p, p, p,
                            i, i, i, i, i, i, i, p],

@@ -9,8 +9,9 @@ level give 0); each ROI pools from one FPN level,
 clamped to [2, 5], with zero-area ROIs treated as padding (zero output).
 
 The level and the sample positions are computed here once, in torch, for
-both the kernel (K2, `roi_align_cuda`) and its plain version: the two then
-agree on every level choice, whatever the device's `log2`.
+the kernels (K2, and K5/K6 with a head fused behind the pool,
+`roi_align_cuda`) and their plain versions: they then agree on every level
+choice, whatever the device's `log2`.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from typing import Sequence
 
 import torch
 
-from maskrcnn_tpu_torch.ops.roi_align_cuda import roi_align
+from maskrcnn_tpu_torch.ops.roi_align_cuda import (roi_align,
+                                                   roi_classifier_head,
+                                                   roi_mask_head)
 
 
 def roi_levels(rois: torch.Tensor, image_shape: tuple[int, int],
@@ -82,13 +85,31 @@ def prepare(rois: torch.Tensor, level_hw: Sequence[tuple[int, int]],
 
 def pyramid_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
                       crop_size: int, image_shape: tuple[int, int],
-                      canonical_scale: float = 224.0) -> torch.Tensor:
+                      canonical_scale: float = 224.0, head_params=None,
+                      mask_params=None, class_ids=None) -> torch.Tensor:
     """P2..P5 as (B, H_l, W_l, C) + (B, N, 4) normalized ROIs ->
     (B, N, crop, crop, C) pooled features in the features' dtype; zero
-    rows of `rois` give zero output."""
+    rows of `rois` give zero output.
+
+    With `head_params` (`roi_align_cuda.pack_classifier_head`) the pool
+    feeds the classifier head (K5) and the result is its (B*N, HEAD_OUT)
+    float32 rows (`unpack_classifier_head`); with `mask_params`
+    (`pack_mask_head`) and (B, N) `class_ids` it feeds the mask head (K6)
+    and the result is the (B*N, 2*crop, 2*crop) float32 masks. Unlike the
+    TPU kernel, the fused calls return only the head's output: the pooled
+    features are never written."""
     b, n, _ = rois.shape
     level_hw = [(f.shape[1], f.shape[2]) for f in features]
     ys, xs, level, valid = prepare(rois.reshape(b * n, 4), level_hw,
                                    image_shape, canonical_scale, crop_size)
-    out = roi_align(list(features), ys, xs, level, valid, n)
+    features = list(features)
+    if head_params is not None:
+        return roi_classifier_head(features, ys, xs, level, valid, n,
+                                   head_params)
+    if mask_params is not None:
+        if class_ids is None:
+            raise ValueError("mask_params needs class_ids")
+        return roi_mask_head(features, ys, xs, level, valid, n, mask_params,
+                             class_ids.reshape(b * n))
+    out = roi_align(features, ys, xs, level, valid, n)
     return out.reshape(b, n, crop_size, crop_size, out.shape[-1])

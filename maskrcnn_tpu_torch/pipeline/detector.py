@@ -1,6 +1,7 @@
 """User-facing detector: params on the card -> forward -> unmold on the host.
 Port of `maskrcnn_tpu/pipeline/detector.py` (single device; boolean masks
-pasted on the host with PIL's bilinear resample).
+pasted on the host with PIL's bilinear resample, or on the device by
+`run_batch(..., paste_size=S)`).
 
     det = MaskRCNNDetector.from_checkpoint(MaskRCNNConfig(), "ckpt.npz")
     results = det.detect_images([img1, img2])   # list of list[Detection]
@@ -18,7 +19,8 @@ from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
 from maskrcnn_tpu_torch.models.mask_rcnn import (forward, init_mask_rcnn,
                                                  params_to, resolve_device)
 from maskrcnn_tpu_torch.pipeline.preprocess import (LetterboxWindow,
-                                                    letterbox_numpy)
+                                                    letterbox_numpy,
+                                                    quantize_canvas_u8)
 
 
 @dataclasses.dataclass
@@ -60,22 +62,27 @@ class MaskRCNNDetector:
 
     # --- device step -------------------------------------------------------
 
-    def run_batch(self, images) -> dict[str, torch.Tensor]:
-        """(B, S, S, 3) RGB [0, 255] letterboxed batch -> raw padded outputs
-        (normalized coordinates, on the device)."""
-        return forward(self.params, images, self.config, device=self.device)
+    def run_batch(self, images, paste_size: int | None = None
+                  ) -> dict[str, torch.Tensor]:
+        """(B, S, S, 3) RGB [0, 255] letterboxed batch (host array or
+        tensor; a tensor already on the device is not copied) -> raw padded
+        outputs (normalized coordinates, on the device). `paste_size` also
+        pastes full-resolution uint8 masks on the device
+        (`out["pasted"]`)."""
+        return forward(self.params, images, self.config, device=self.device,
+                       paste_size=paste_size)
 
     # --- host decode -------------------------------------------------------
 
     def detect_images(self, images: Sequence[np.ndarray],
                       paste_masks: bool = True,
-                      batch_size: int | None = None
-                      ) -> list[list[Detection]]:
+                      batch_size: int | None = None,
+                      uint8_wire: bool = False) -> list[list[Detection]]:
         """Arbitrary-size RGB images -> per-image decoded detections.
 
         `paste_masks`: True -> full-canvas boolean masks; False -> boxes
         only. `batch_size` pads the last chunk to a full batch (None = one
-        batch of len(images))."""
+        batch of len(images)). `uint8_wire`: see `detect_canvases`."""
         if not images:
             return []
         size = self.config.image_height
@@ -84,6 +91,26 @@ class MaskRCNNDetector:
             canvas, win = letterbox_numpy(img, size)
             canvases.append(canvas)
             windows.append(win)
+        return self.detect_canvases(canvases, windows,
+                                    paste_masks=paste_masks,
+                                    batch_size=batch_size,
+                                    uint8_wire=uint8_wire)
+
+    def detect_canvases(self, canvases: Sequence[np.ndarray],
+                        windows: Sequence[LetterboxWindow],
+                        paste_masks: bool = True,
+                        batch_size: int | None = None,
+                        uint8_wire: bool = False) -> list[list[Detection]]:
+        """Letterboxed (S, S, 3) float32 canvases and their windows ->
+        per-image decoded detections.
+
+        `uint8_wire`: quantize the canvases to uint8 before the host to
+        device copy (`quantize_canvas_u8`, +-0.5 of a level): 4x fewer
+        bytes on the wire."""
+        if not canvases:
+            return []
+        if uint8_wire:
+            canvases = [quantize_canvas_u8(c) for c in canvases]
         results: list[list[Detection]] = []
         bs = batch_size or len(canvases)
         for start in range(0, len(canvases), bs):

@@ -17,6 +17,7 @@ import torch
 
 import maskrcnn_tpu_torch
 from maskrcnn_tpu_torch.core.config import tiny_test_config
+from maskrcnn_tpu_torch.models import heads as pt_heads
 from maskrcnn_tpu_torch.models import mask_rcnn as pt_model
 from maskrcnn_tpu_torch.ops import (bottleneck_cuda, cuda_lib, nms_cuda,
                                     roi_align, roi_align_cuda, stem_cuda)
@@ -93,6 +94,27 @@ def test_kernel_gates_stay_off_on_cpu():
         torch.zeros((1, 32, 32, 64)), torch.bfloat16, blocks)
     assert bottleneck_cuda.block_supported((1, 32, 32, 64), blocks[0])
     assert not bottleneck_cuda.block_supported((1, 30, 32, 64), blocks[0])
+    # the fused heads (K5, K6) take their plain versions on the CPU
+    cfg = tiny_test_config().replace(fuse_classifier_head=True,
+                                     fuse_mask_head=True,
+                                     detection_score_threshold=0.0)
+    params = pt_model.init_mask_rcnn(torch.Generator().manual_seed(0), cfg)
+    cuda_lib.reset_launches()
+    out = pt_model.forward(params, np.zeros((1, 128, 128, 3), np.float32),
+                           cfg, device="cpu")
+    assert out["masks"].shape == (1, cfg.max_detections, 28, 28)
+    assert not any(cuda_lib.launches.values())
+
+
+def test_fused_float32_config_raises_on_the_card():
+    """A fused config in float32 is refused on a CUDA device before any
+    work reaches it (the fused kernels take bf16), not run unfused."""
+    cfg = tiny_test_config().replace(compute_dtype="float32",
+                                     fuse_mask_head=True)
+    params = pt_model.init_mask_rcnn(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError, match="bfloat16 on the card"):
+        pt_model.forward(params, np.zeros((1, 128, 128, 3), np.float32),
+                         cfg, device="cuda")
 
 
 def _nms_case(seed=0, b=2, n=600):
@@ -127,6 +149,39 @@ def _chain_case(seed=0):
     return x, blocks
 
 
+def _head_case(seed=0, b=2, n=20, crop=7, c=256, dtype=torch.float32):
+    """Features, the pool's prepared positions, the packed head (K5 at
+    pool 7, K6 at pool 14, 81 classes, BN statistics from the seed) and
+    class ids 1..80."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    feats = [torch.from_numpy(rng.standard_normal(
+        (b, 64 >> l, 64 >> l, c)).astype(np.float32)).to(dtype)
+        for l in range(4)]
+    yx1 = rng.uniform(0, 0.7, size=(b * n, 2))
+    rois = np.concatenate([yx1, np.minimum(
+        yx1 + rng.uniform(0.02, 0.6, size=(b * n, 2)), 1.0)], -1)
+    rois[::9] = 0.0
+    prep = roi_align.prepare(torch.from_numpy(rois.astype(np.float32)),
+                             [(f.shape[1], f.shape[2]) for f in feats],
+                             (1024, 1024), 224.0, crop)
+    if crop == 7:
+        params = pt_heads.init_classifier_head(gen, 81, c, 7, 1024)
+    else:
+        params = pt_heads.init_mask_head(gen, 81, c, c)
+    for w in params.values():
+        if "moving_variance" in w:
+            k = w["gamma"].shape[0]
+            w.update(gamma=torch.rand(k, generator=gen) + 0.5,
+                     beta=torch.rand(k, generator=gen) * 0.4 - 0.2,
+                     moving_mean=torch.rand(k, generator=gen) * 0.4 - 0.2,
+                     moving_variance=torch.rand(k, generator=gen) + 0.5)
+    packed = (roi_align_cuda.pack_classifier_head(params, 81, dtype)
+              if crop == 7 else roi_align_cuda.pack_mask_head(params, dtype))
+    ids = torch.from_numpy(rng.integers(1, 81, b * n).astype(np.int32))
+    return feats, prep, n, packed, ids
+
+
 def test_wrappers_take_plain_version_on_cpu():
     cuda_lib.reset_launches()
     boxes, valid = _nms_case()
@@ -143,8 +198,16 @@ def test_wrappers_take_plain_version_on_cpu():
     x, blocks = _chain_case()
     z = bottleneck_cuda.fused_bottleneck_chain(x, blocks)
     assert z.shape == (2, 32, 32, 256) and z.dtype == torch.bfloat16
-    assert cuda_lib.launches == {"nms": 0, "roi_align": 0, "stem": 0,
-                                 "bottleneck": 0}
+    feats, prep, n, head, _ = _head_case(c=32, n=6)
+    h = roi_align_cuda.roi_classifier_head(feats, *prep, n, head)
+    assert h.shape == (12, roi_align_cuda.HEAD_OUT) and h.dtype == torch.float32
+    feats, prep, n, mask, ids = _head_case(c=32, n=6, crop=14)
+    mk = roi_align_cuda.roi_mask_head(feats, *prep, n, mask, ids)
+    assert mk.shape == (12, 28, 28) and mk.dtype == torch.float32
+    assert set(cuda_lib.launches) == {"nms", "roi_align", "stem",
+                                      "bottleneck", "roi_classifier_head",
+                                      "roi_mask_head"}
+    assert not any(cuda_lib.launches.values())
 
 
 def _card():
@@ -207,3 +270,30 @@ def test_gpu_chain_kernel_matches_plain():
     # another order: an ulp that later blocks carry on
     torch.testing.assert_close(got, want, rtol=0.02,
                                atol=0.01 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_gpu_classifier_head_kernel_matches_plain():
+    dev = _card()
+    feats, prep, n, head, _ = _head_case(dtype=torch.bfloat16)
+    args = ([f.to(dev) for f in feats], *[t.to(dev) for t in prep], n,
+            {k: v.to(dev) for k, v in head.items()})
+    want = roi_align_cuda.classifier_head_plain(*args)
+    got = roi_align_cuda.roi_classifier_head(*args)
+    # bf16 h1/h2 rounded at the same points after float32 sums in another
+    # order: an ulp of h1 moves the outputs by far less than 2% of the max
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=0.02 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_gpu_mask_head_kernel_matches_plain():
+    dev = _card()
+    feats, prep, n, mask, ids = _head_case(crop=14, dtype=torch.bfloat16)
+    args = ([f.to(dev) for f in feats], *[t.to(dev) for t in prep], n,
+            {k: v.to(dev) for k, v in mask.items()}, ids.to(dev))
+    want = roi_align_cuda.mask_head_plain(*args)
+    got = roi_align_cuda.roi_mask_head(*args)
+    # four bf16 activation roundings after float32 sums in another order,
+    # through a sigmoid (slope <= 1/4)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-2)
