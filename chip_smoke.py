@@ -13,7 +13,9 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            take (`bound_ms`) and, where one PyTorch call computes the same
            function, that call's time (`library_ms`, never used by the port;
            for K5 and K6 the unfused route, K2 and then the head, several
-           calls)
+           calls); K4 and K5 also with L2 cold (`ms_l2_cold`: a 256 MB
+           buffer written before each timed call), their rate (`tflops`)
+           and `share_of_bound` (bound_ms / ms)
   small    the detector forward on the card against the same forward on the
            CPU (plain path), tiny config in float32
   e2e      `MaskRCNNDetector.detect_images` at R101-FPN @ 1024^2, 81 classes,
@@ -80,6 +82,34 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_l2_cold(fn, reps: int, warmup: int = 1,
+                    flush_bytes: int = 256 << 20) -> float:
+    """Mean device time of fn() with L2 cold: before each timed call a
+    `flush_bytes` buffer (5x the H100's 50 MB L2) is written, so weights and
+    inputs left in L2 by the last call are gone; CUDA events around fn()
+    alone."""
+    flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for i in range(reps):
+        flush.fill_(float(i))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    del flush
+    return total / reps
+
+
+def roofline(ms: float, flops: float, bnd: tuple[float, str]) -> dict:
+    """Achieved rate and the share of the card's bound a kernel reaches."""
+    return {"tflops": flops / ms / 1e9, "share_of_bound": bnd[0] / ms}
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -283,6 +313,7 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
     argmax_same = (got[:, :nc].argmax(1) == want[:, :nc].argmax(1)
                    ).float().mean().item()
     ms = cuda_ms(lambda: rac.roi_classifier_head(*args), 20)
+    ms_cold = cuda_ms_l2_cold(lambda: rac.roi_classifier_head(*args), 10)
     plain_ms = cuda_ms(lambda: rac.classifier_head_plain(*args), 3)
     library_ms = cuda_ms(lambda: heads.apply_classifier_head(
         params, rac.roi_align(pyramid, *prep, n), nc, dtype=bf16), 20)
@@ -292,15 +323,17 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
     cells = distinct_cells(*prep, n, hw)
     moved = (nbytes(*head.values()) + cells * c * pyramid[0].element_size()
              + nbytes(got, *prep))
+    flops = 2.0 * m * (k1 * n1 + n1 * n2 + n2 * n3)
+    bnd = bound(moved, flops, BF16_FLOPS)
     rows.append(record(
         "K5_roi_classifier_head", "cuda",
         "maskrcnn_tpu_torch/csrc/roi_classifier_head.cu",
         "maskrcnn_tpu/ops/roi_align_pallas.py:716", ms, plain_ms, err,
-        tol, bound(moved, 2.0 * m * (k1 * n1 + n1 * n2 + n2 * n3),
-                   BF16_FLOPS), library_ms,
-        {"rois": [batch, n], "widths": [k1, n1, n2, n3],
+        tol, bnd, library_ms,
+        {"ms_l2_cold": ms_cold, **roofline(ms, flops, bnd),
+         "rois": [batch, n], "widths": [k1, n1, n2, n3],
          "argmax_same": argmax_same, "argmax_tol": 0.995,
-         "kernel_launches_per_call": 3, "distinct_cells": cells,
+         "kernel_launches_per_call": 5, "distinct_cells": cells,
          "library": "K2 pool 7, then models/heads.py (cuBLAS): several "
                     "calls", "plain_max_abs": want.abs().max().item()},
         ok=err <= tol and argmax_same >= 0.995))
@@ -404,6 +437,8 @@ def check_chains(dev, rng, batch, params):
         tol_each = 0.02 * want.abs() + 0.01 * want.abs().max()
         bad = int((err > tol_each).sum())
         ms = cuda_ms(lambda: bc.fused_bottleneck_chain(x, blocks), 10)
+        ms_cold = cuda_ms_l2_cold(
+            lambda: bc.fused_bottleneck_chain(x, blocks), 10)
         plain_ms = cuda_ms(lambda: bc.chain_plain(x, blocks), 2, 1)
         lib = [(blk["w1"].t()[:, :, None, None].contiguous(), blk["b1"],
                 blk["w2"].reshape(3, 3, *blk["w2"].shape[1:])
@@ -424,15 +459,16 @@ def check_chains(dev, rng, batch, params):
 
         library_ms = cuda_ms(library, 10)
         wbytes = sum(nbytes(*blk.values()) for blk in blocks)
+        flops = chain_flops(x.shape, blocks)
+        bnd = bound(nbytes(x) + got.numel() * 2 + wbytes, flops, BF16_FLOPS)
         rows.append(record(
             f"K4_chain_res{stage}{letters}", "cuda",
             "maskrcnn_tpu_torch/csrc/bottleneck.cu",
             "maskrcnn_tpu/ops/bottleneck_pallas.py:213", ms, plain_ms,
             err.max().item(), "0.02*|plain| + 0.01*max|plain| each",
-            bound(nbytes(x) + got.numel() * 2 + wbytes,
-                  chain_flops(x.shape, blocks), BF16_FLOPS),
-            library_ms,
-            {"shape": list(x.shape), "cout": blocks[-1]["w3"].shape[1],
+            bnd, library_ms,
+            {"ms_l2_cold": ms_cold, **roofline(ms, flops, bnd),
+             "shape": list(x.shape), "cout": blocks[-1]["w3"].shape[1],
              "elements_over_tol": bad, "kernel_launches_per_chain": 3,
              "plain_max_abs": want.abs().max().item()},
             ok=bad == 0))
@@ -466,12 +502,14 @@ def check_small_forward(dev, seed):
         raise AssertionError("forward on the card disagrees with the CPU")
 
 
+# Profile groups by kernel name. roi_align_kernel is K2 on the e2e path and
+# K5's pool pass on the stream path (K5 pools once, then runs its GEMMs).
 KERNEL_GROUPS = (("K1 nms", ("nms_kernel",)),
                  ("K2 roi_align", ("roi_align_kernel",)),
                  ("K3 stem", ("stem_kernel",)),
                  ("K4 bottleneck", ("bottleneck_kernel",)),
-                 ("K5 roi_classifier_head", ("pool_dense1_kernel",
-                                             "dense_kernel")),
+                 ("K5 roi_classifier_head", ("head_gemm_kernel",
+                                             "split_sum_kernel")),
                  ("K6 roi_mask_head", ("mask_head_kernel",)))
 E2E_KERNELS = ("nms", "roi_align", "stem", "bottleneck")
 STREAM_KERNELS = ("nms", "stem", "bottleneck", "roi_classifier_head",

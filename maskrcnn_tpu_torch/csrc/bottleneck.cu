@@ -7,246 +7,438 @@
 // (pallas_call :213, kernel _chain_kernel :80, fold_bottleneck_chain :40).
 // Difference from the TPU kernel: that one ran the whole chain (res2 a-c,
 // res3 b-d) in one call and wrote only the chain's output; this one writes
-// each block's output, so a 3-block chain sends two intermediate maps
-// through device memory. Fusing the chain is later work.
+// each block's output. The two maps a chain sends through device memory
+// are 134 MB (res3) and 268 MB (res2) written and read back, 0.04-0.08 ms
+// at 3.35 TB/s; a fused chain would need a tile with a three-block halo of
+// 512-channel maps, far over the 227 KB a block has. One launch per block
+// stays.
 //
-// What bounds it on an H100: operations (28 GFLOP per image and chain at
-// 1024^2 against ~100 MB moved). This first version uses the tensor cores
-// through the warp-level WMMA API (bf16 16x16x16 tiles, float32
-// accumulation) with weight fragments read straight from device memory
-// (they stay in L2), no wgmma and no TMA, so it sits well below the
-// card's bf16 peak.
+// What bounds it on an H100: operations (18.3 GFLOP per res3 block at
+// batch 2, 1024^2, against ~100 MB moved). What held the first version
+// back was memory traffic, not the tensor cores: every warp loaded every B
+// fragment from L2 (~5 MB per block at res3, ~3.8 GB per chain), every
+// epilogue went through a float32 scratch, and the output left in 4-byte
+// stores that each wrote half of a 32-byte sector, with the residual reads
+// waiting behind them (ablations: PERF.md, PR 3).
 //
-// Design: one block of 8 warps per 8x16 tile of output pixels.
-//  1. t1 = relu(x @ w1 + b1) on the tile plus its one-pixel halo (10x18 =
-//     180 positions, padded to 192 rows), contracting over Cin in chunks of
-//     64 channels staged in shared memory; halo positions outside the image
-//     are set to zero: the 3x3's SAME padding (_chain_kernel:126-132).
-//  2. t2 = relu(conv3x3(t1) + b2): warp w owns output row w (16 pixels),
-//     and for tap (dy, dx) its A operand is 16 consecutive t1 positions,
-//     ((w + dy) * 18 + dx), one strided shared-memory fragment.
-//  3. out = relu((t2 @ w3 + b3) + shortcut), shortcut = x @ ws + bs (A read
-//     from device memory) or x, in column chunks of 64.
-// t1 and t2 stay in shared memory as bf16. Every epilogue goes through a
-// per-warp 16x16 float32 scratch so bias, ReLU, masking and rounding are
-// applied per element in the plain version's order.
+// Design: one block of 8 warps per 8 x 16 tile of output pixels. The grid
+// covers the image rounded up to whole tiles and the kernel masks the
+// ragged edge itself, so any H and W are taken.
+//  * Weights stream through a 3-stage ring of shared-memory chunks (64
+//    K-rows x up to 128 columns) brought by cp.async and shared by all 8
+//    warps: each weight byte is read from L2 once per block (557 KB per
+//    res3 block, 34 chunks). Stage 1's x halo chunk (and a projection's x
+//    chunk) rides in the same ring slot.
+//  * Tensor cores through mma.sync m16n8k16 fed by ldmatrix: A rows are
+//    addressed per lane, which the 3x3 needs (its A rows are the t1
+//    positions shifted by the tap, a window that starts on any row and
+//    skips two rows between output rows). wgmma's shared-memory
+//    descriptors want 8-row groups on a fixed stride from a 1024-byte-
+//    aligned swizzle atom, which such a window breaks; mma.sync is the
+//    simpler correct choice here.
+//  * 1. t1 = relu(x @ w1 + b1) on the tile plus its one-pixel halo (10 x 18
+//       = 180 positions, padded to 192 rows), zero outside the image: the
+//       3x3's SAME padding (_chain_kernel:126-132). Warps 4 x 2: 48 rows x
+//       M/2 columns each.
+//    2. t2 = relu(conv3x3(t1) + b2): per tap (dy, dx) the A row of output
+//       pixel (r, c) is t1 position (r + dy) * 18 + c + dx. Warps 4 x 2: two
+//       output rows x M/2 columns each.
+//    3. out = relu((t2 @ w3 + b3) + shortcut), in column chunks of 128 (64
+//       where Cout is not a multiple of 128); a projection's x @ ws adds
+//       into the same accumulator (+ bs after b3), an identity shortcut is
+//       read from x (issued before the chunk's products). The rounded
+//       chunk is staged in shared memory (t1 is dead by then) and leaves
+//       in 16-byte pieces, each pixel's columns contiguous.
+//  * t1 and t2 stay in shared memory as bf16. Epilogues (bias, ReLU, SAME
+//    mask, residual, bf16 rounding) act on the accumulator registers where
+//    they sit, in the plain version's order.
+//  * Shared memory: ring 3 x 45,056 B + t1 52,224 B + t2 34,816 B =
+//    222,208 B at mid 128; 135,168 + 34,816 (t1 sized for the staged
+//    output) + 18,432 = 188,416 B at mid 64: one block per SM. res3 (128^2,
+//    batch 2) is 256 blocks, 1.94 waves on 132 SMs; res2 (256^2) 1024
+//    blocks, 7.8 waves. A 16 x 16 tile would cut the halo recompute from
+//    1.41x to 1.27x, but its t1 (324 rows) does not fit beside the ring at
+//    mid 128, and at res3 it leaves 128 blocks for 132 SMs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "roi_head_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace mrt;
 
 constexpr int kTH = 8, kTW = 16;            // output tile
 constexpr int kHW = kTW + 2;                // halo width (18)
 constexpr int kHP = (kTH + 2) * kHW;        // halo positions (180)
 constexpr int kHPP = 192;                   // padded to 16-row fragments
-constexpr int kKC = 64;                     // Cin chunk of stage 1
-constexpr int kLdX = kKC + 16;              // staged-x row stride (elements)
+constexpr int kPix = kTH * kTW;             // output pixels (128)
+constexpr int kKC = 64;                     // K rows of a weight chunk
+constexpr int kLdA = kKC + 8;               // x chunk row stride (elements)
+constexpr int kLdB = 128 + 8;               // weight chunk row stride
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int kSlotB = kKC * kLdB * 2;      // 17,408 B
+constexpr int kSlotA = kHPP * kLdA * 2;     // 27,648 B
+constexpr int kSlot = kSlotB + kSlotA;
+constexpr int kStages = 3;                  // ring slots
 
 template <int M>
 struct Layout {
-  static constexpr int kLdT = M + 16;       // t1/t2 row stride (32 B multiple)
-  static constexpr size_t kT1 = (size_t)kHPP * kLdT * sizeof(bf16);
-  static constexpr size_t kX = (size_t)kHPP * kLdX * sizeof(bf16);
-  static constexpr size_t kT2 = (size_t)kTH * kTW * kLdT * sizeof(bf16);
-  static constexpr size_t kXT2 = kX > kT2 ? kX : kT2;  // x chunk / t2 alias
-  static constexpr size_t kScratch = (size_t)kWarps * 2 * 256 * sizeof(float);
-  static constexpr size_t kTotal = kT1 + kXT2 + kScratch;
+  static constexpr int kLdT = M + 8;        // t1/t2 row stride (elements)
+  // t1, and in stage 3 (t1 dead) the output tile staged for coalesced
+  // stores: kPix rows of up to 128 columns.
+  static constexpr size_t kT1 =
+      (size_t)(kHPP * kLdT > kPix * kLdB ? kHPP * kLdT : kPix * kLdB) * 2;
+  static constexpr size_t kT2 = (size_t)kPix * kLdT * 2;
+  static constexpr size_t kTotal = (size_t)kStages * kSlot + kT1 + kT2;
 };
 
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                  const float* __restrict__ b1, const bf16* __restrict__ w2,
-                  const float* __restrict__ b2, const bf16* __restrict__ w3,
-                  const float* __restrict__ b3, const bf16* __restrict__ ws,
-                  const float* __restrict__ bs, bf16* __restrict__ out, int h,
-                  int wd, int cin, int cout, int proj) {
+struct Args {
+  const bf16* x;
+  const bf16* w1;
+  const float* b1;
+  const bf16* w2;
+  const float* b2;
+  const bf16* w3;
+  const float* b3;
+  const bf16* ws;
+  const float* bs;
+  bf16* out;
+  int h, wd, cin, cout, proj;
+};
+
+template <int M, int NB3>
+__global__ void __launch_bounds__(kThreads, 1)
+bottleneck_kernel(Args g) {
   using L = Layout<M>;
+  constexpr int S = kStages;
   constexpr int kLdT = L::kLdT;
-  constexpr int kNF = M / 16;               // column fragments of M
-  constexpr int kNT1 = (kHPP / 16) * kNF / kWarps;  // stage-1 tiles per warp
+  constexpr int kN12 = M / 16;              // n8 tiles per warp, stages 1-2
+  constexpr int kN3 = NB3 / 16;             // n8 tiles per warp, stage 3
+  constexpr int kMC = M / kKC;              // K chunks of M
 
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* t1 = reinterpret_cast<bf16*>(smem);
-  bf16* xs = reinterpret_cast<bf16*>(smem + L::kT1);
-  bf16* t2 = xs;  // x chunks are dead once stage 1 is done
-  float* scratch = reinterpret_cast<float*>(smem + L::kT1 + L::kXT2);
+  const uint32_t ring = smem_u32(smem);
+  bf16* t1 = reinterpret_cast<bf16*>(smem + (size_t)S * kSlot);
+  bf16* t2 = reinterpret_cast<bf16*>(smem + (size_t)S * kSlot + L::kT1);
+  const uint32_t t1s = smem_u32(t1), t2s = smem_u32(t2);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sa = scratch + warp * 512;
-  float* sb = sa + 256;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
+  const int bimg = blockIdx.z;
   const int y0 = blockIdx.y * kTH, x0 = blockIdx.x * kTW;
-  const bf16* xb = x + (size_t)b * h * wd * cin;
+  const int h = g.h, wd = g.wd, cin = g.cin, cout = g.cout;
+  const bf16* xb = g.x + (size_t)bimg * h * wd * cin;
+
+  const int n1c = cin / kKC;
+  const int n2c = 9 * kMC;
+  const int per_q = kMC + (g.proj ? n1c : 0);
+  const int total = n1c + n2c + (cout / NB3) * per_q;
+
+  // Chunk j of the block's weight stream into ring slot j % S, with the x
+  // chunk it pairs with (stage 1: the halo; projection: the tile's pixels).
+  auto load_chunk = [&](int j) {
+    const uint32_t slot = ring + (j % S) * kSlot;
+    const uint32_t sa = slot + kSlotB;
+    const bf16* src;
+    int stride, ncols, xc = -1;
+    bool halo = false;
+    if (j < n1c) {
+      src = g.w1 + (size_t)j * kKC * M;
+      stride = M;
+      ncols = M;
+      xc = j * kKC;
+      halo = true;
+    } else if (j < n1c + n2c) {
+      const int jj = j - n1c, tap = jj / kMC, kc = jj % kMC;
+      src = g.w2 + (size_t)tap * M * M + (size_t)kc * kKC * M;
+      stride = M;
+      ncols = M;
+    } else {
+      const int jj = j - n1c - n2c, q = jj / per_q, r = jj % per_q;
+      stride = cout;
+      ncols = NB3;
+      if (r < kMC) {
+        src = g.w3 + (size_t)r * kKC * cout + q * NB3;
+      } else {
+        xc = (r - kMC) * kKC;
+        src = g.ws + (size_t)xc * cout + q * NB3;
+      }
+    }
+    // Two loops with constant divisors: this runs for every chunk on every
+    // thread, where a division by a runtime width showed in the time.
+    if (ncols == 128) {
+      for (int i = tid; i < kKC * 16; i += kThreads) {
+        const int row = i >> 4, pc = i & 15;
+        cp_async16(slot + (row * kLdB + pc * 8) * 2,
+                   src + (size_t)row * stride + pc * 8, true);
+      }
+    } else {
+      for (int i = tid; i < kKC * 8; i += kThreads) {
+        const int row = i >> 3, pc = i & 7;
+        cp_async16(slot + (row * kLdB + pc * 8) * 2,
+                   src + (size_t)row * stride + pc * 8, true);
+      }
+    }
+    if (xc >= 0) {
+      const int rows = halo ? kHPP : kPix;
+      for (int i = tid; i < rows * 8; i += kThreads) {
+        const int pos = i / 8, pc = i % 8;
+        int gy, gx;
+        bool ok;
+        if (halo) {
+          gy = y0 - 1 + pos / kHW;
+          gx = x0 - 1 + pos % kHW;
+          ok = pos < kHP;
+        } else {
+          gy = y0 + pos / kTW;
+          gx = x0 + pos % kTW;
+          ok = true;
+        }
+        ok = ok && gy >= 0 && gy < h && gx >= 0 && gx < wd;
+        const bf16* s = ok ? xb + ((size_t)gy * wd + gx) * cin + xc + pc * 8
+                           : g.x;
+        cp_async16(sa + (pos * kLdA + pc * 8) * 2, s, ok);
+      }
+    }
+  };
+
+  // Chunk j is in its slot for every thread, and the slot chunk j - 1 used
+  // is free again: refill it with chunk j + S - 1.
+  auto acquire = [&](int j) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (j + S - 1 < total) load_chunk(j + S - 1);
+    cp_async_commit();
+  };
+
+  for (int j = 0; j < S - 1; ++j) {
+    if (j < total) load_chunk(j);
+    cp_async_commit();
+  }
+  int j = 0;
 
   // ---- stage 1: t1 over the halo tile ------------------------------------
-  FragC acc1[kNT1];
-#pragma unroll
-  for (int i = 0; i < kNT1; ++i) wmma::fill_fragment(acc1[i], 0.0f);
-
-  for (int kc = 0; kc < cin; kc += kKC) {
-    __syncthreads();
-    // 8 x 16-byte pieces per position and chunk.
-    for (int i = threadIdx.x; i < kHPP * 8; i += kThreads) {
-      const int pos = i / 8, piece = i % 8;
-      const int gy = y0 - 1 + pos / kHW, gx = x0 - 1 + pos % kHW;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (pos < kHP && gy >= 0 && gy < h && gx >= 0 && gx < wd) {
-        v = *reinterpret_cast<const uint4*>(
-            xb + ((size_t)gy * wd + gx) * cin + kc + piece * 8);
-      }
-      *reinterpret_cast<uint4*>(xs + pos * kLdX + piece * 8) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kKC / 16; ++kk) {
-#pragma unroll
-      for (int i = 0; i < kNT1; ++i) {
-        const int t = warp + kWarps * i;
-        const int rf = t / kNF, cf = t % kNF;
-        FragA a;
-        FragB bm;
-        wmma::load_matrix_sync(a, xs + rf * 16 * kLdX + kk * 16, kLdX);
-        wmma::load_matrix_sync(bm, w1 + (size_t)(kc + kk * 16) * M + cf * 16,
-                               M);
-        wmma::mma_sync(acc1[i], a, bm, acc1[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kNT1; ++i) {
-    const int t = warp + kWarps * i;
-    const int rf = t / kNF, cf = t % kNF;
-    wmma::store_matrix_sync(sa, acc1[i], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int pos = rf * 16 + e / 16, col = cf * 16 + e % 16;
-      const int gy = y0 - 1 + pos / kHW, gx = x0 - 1 + pos % kHW;
-      float v = fmaxf(sa[e] + b1[col], 0.0f);
-      if (pos >= kHP || gy < 0 || gy >= h || gx < 0 || gx >= wd) v = 0.0f;
-      t1[pos * kLdT + col] = __float2bfloat16_rn(v);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // ---- stage 2: t2 = relu(conv3x3(t1) + b2), warp = output row -----------
   {
-    FragC acc2[kNF];
+    float acc[3][kN12][4];
 #pragma unroll
-    for (int j = 0; j < kNF; ++j) wmma::fill_fragment(acc2[j], 0.0f);
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int n = 0; n < kN12; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+    for (int kc = 0; kc < n1c; ++kc, ++j) {
+      acquire(j);
+      const uint32_t slot = ring + (j % S) * kSlot;
+      const uint32_t sa = slot + kSlotB;
+#pragma unroll
+      for (int kk = 0; kk < kKC / 16; ++kk) {
+        uint32_t a[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ldsm_x4(a[i], sa + ((wm * 48 + i * 16 + lrow) * kLdA + kk * 16 +
+                              lcol) * 2);
+#pragma unroll
+        for (int np = 0; np < kN12 / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, slot + ((kk * 16 + lrow) * kLdB + wn * (M / 2) +
+                                   np * 16 + lcol) * 2);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            mma16816(acc[i][2 * np], a[i], b[0], b[1]);
+            mma16816(acc[i][2 * np + 1], a[i], b[2], b[3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kN12; ++n) {
+      const int col = wn * (M / 2) + n * 8 + 2 * tq;
+      const float c0 = g.b1[col], c1 = g.b1[col + 1];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int pos = wm * 48 + i * 16 + gq + 8 * hh;
+          const int gy = y0 - 1 + pos / kHW, gx = x0 - 1 + pos % kHW;
+          const bool in = pos < kHP && gy >= 0 && gy < h && gx >= 0 &&
+                          gx < wd;
+          const float v0 = in ? fmaxf(acc[i][n][2 * hh] + c0, 0.0f) : 0.0f;
+          const float v1 = in ? fmaxf(acc[i][n][2 * hh + 1] + c1, 0.0f)
+                              : 0.0f;
+          *reinterpret_cast<uint32_t*>(t1 + pos * kLdT + col) =
+              pack_bf16(v0, v1);
+        }
+      }
+    }
+  }
+
+  // ---- stage 2: t2 = relu(conv3x3(t1) + b2) ------------------------------
+  {
+    float acc[2][kN12][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < kN12; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap % 3;
-      const bf16* arow = t1 + ((warp + dy) * kHW + dx) * kLdT;
-      const bf16* wt = w2 + (size_t)tap * M * M;
+      for (int kc = 0; kc < kMC; ++kc, ++j) {
+        acquire(j);
+        const uint32_t slot = ring + (j % S) * kSlot;
 #pragma unroll
-      for (int kk = 0; kk < kNF; ++kk) {
-        FragA a;
-        wmma::load_matrix_sync(a, arow + kk * 16, kLdT);
+        for (int kk = 0; kk < kKC / 16; ++kk) {
+          uint32_t a[2][4];
 #pragma unroll
-        for (int j = 0; j < kNF; ++j) {
-          FragB bm;
-          wmma::load_matrix_sync(bm, wt + (size_t)kk * 16 * M + j * 16, M);
-          wmma::mma_sync(acc2[j], a, bm, acc2[j]);
+          for (int i = 0; i < 2; ++i) {
+            const int pos = (2 * wm + i + dy) * kHW + lrow + dx;
+            ldsm_x4(a[i], t1s + (pos * kLdT + kc * kKC + kk * 16 + lcol) * 2);
+          }
+#pragma unroll
+          for (int np = 0; np < kN12 / 2; ++np) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, slot + ((kk * 16 + lrow) * kLdB + wn * (M / 2) +
+                                     np * 16 + lcol) * 2);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              mma16816(acc[i][2 * np], a[i], b[0], b[1]);
+              mma16816(acc[i][2 * np + 1], a[i], b[2], b[3]);
+            }
+          }
         }
       }
     }
 #pragma unroll
-    for (int j = 0; j < kNF; ++j) {
-      wmma::store_matrix_sync(sa, acc2[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e / 16, col = j * 16 + e % 16;
-        t2[(warp * 16 + r) * kLdT + col] =
-            __float2bfloat16_rn(fmaxf(sa[e] + b2[col], 0.0f));
+    for (int n = 0; n < kN12; ++n) {
+      const int col = wn * (M / 2) + n * 8 + 2 * tq;
+      const float c0 = g.b2[col], c1 = g.b2[col + 1];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int p = (2 * wm + i) * kTW + gq + 8 * hh;
+          *reinterpret_cast<uint32_t*>(t2 + p * kLdT + col) =
+              pack_bf16(fmaxf(acc[i][n][2 * hh] + c0, 0.0f),
+                        fmaxf(acc[i][n][2 * hh + 1] + c1, 0.0f));
+        }
       }
-      __syncwarp();
     }
   }
-  // t2 rows of this warp are written and read by this warp only.
-  __syncwarp();
 
   // ---- stage 3: out = relu((t2 @ w3 + b3) + shortcut) -------------------
-  const int gy = y0 + warp;
-  const size_t pix0 = ((size_t)b * h + gy) * wd + x0;  // first pixel of row
-  for (int nc = 0; nc < cout; nc += 64) {
-    FragC acc3[4], accs[4];
+  for (int q = 0; q < cout / NB3; ++q) {
+    float acc[2][kN3][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::fill_fragment(acc3[j], 0.0f);
-      wmma::fill_fragment(accs[j], 0.0f);
-    }
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int kk = 0; kk < kNF; ++kk) {
-      FragA a;
-      wmma::load_matrix_sync(a, t2 + warp * 16 * kLdT + kk * 16, kLdT);
+      for (int n = 0; n < kN3; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragB bm;
-        wmma::load_matrix_sync(bm, w3 + (size_t)kk * 16 * cout + nc + j * 16,
-                               cout);
-        wmma::mma_sync(acc3[j], a, bm, acc3[j]);
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+    // The epilogue's global reads (biases, identity residual), issued
+    // before the products so their latency hides under them.
+    float2 bias[kN3], sbias[kN3];
+    uint32_t res[2][kN3][2];
+#pragma unroll
+    for (int n = 0; n < kN3; ++n) {
+      const int col = q * NB3 + wn * (NB3 / 2) + n * 8 + 2 * tq;
+      bias[n] = make_float2(__ldg(g.b3 + col), __ldg(g.b3 + col + 1));
+      sbias[n] = g.proj ? make_float2(__ldg(g.bs + col), __ldg(g.bs + col + 1))
+                        : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int p = wm * 32 + i * 16 + gq + 8 * hh;
+          const int gy = y0 + p / kTW, gx = x0 + p % kTW;
+          res[i][n][hh] = 0u;
+          if (!g.proj && gy < h && gx < wd) {
+            const size_t pix = ((size_t)bimg * h + gy) * wd + gx;
+            res[i][n][hh] = __ldg(reinterpret_cast<const unsigned int*>(
+                g.x + pix * cin + col));
+          }
+        }
       }
     }
-    if (proj) {
-      for (int kk = 0; kk < cin / 16; ++kk) {
-        FragA a;
-        wmma::load_matrix_sync(a, x + pix0 * cin + kk * 16, cin);
+    for (int r = 0; r < per_q; ++r, ++j) {
+      acquire(j);
+      const uint32_t slot = ring + (j % S) * kSlot;
+      // A: t2 for the first M/64 chunks, then the staged x (projection).
+      const bool xa = r >= kMC;
+      const uint32_t abase = xa ? slot + kSlotB : t2s;
+      const int lda = xa ? kLdA : kLdT;
+      const int acol = xa ? 0 : r * kKC;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          FragB bm;
-          wmma::load_matrix_sync(
-              bm, ws + (size_t)kk * 16 * cout + nc + j * 16, cout);
-          wmma::mma_sync(accs[j], a, bm, accs[j]);
+      for (int kk = 0; kk < kKC / 16; ++kk) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          ldsm_x4(a[i], abase + ((wm * 32 + i * 16 + lrow) * lda + acol +
+                                 kk * 16 + lcol) * 2);
+#pragma unroll
+        for (int np = 0; np < kN3 / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, slot + ((kk * 16 + lrow) * kLdB + wn * (NB3 / 2) +
+                                   np * 16 + lcol) * 2);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma16816(acc[i][2 * np], a[i], b[0], b[1]);
+            mma16816(acc[i][2 * np + 1], a[i], b[2], b[3]);
+          }
         }
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sa, acc3[j], 16, wmma::mem_row_major);
-      if (proj) wmma::store_matrix_sync(sb, accs[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e / 16, col = nc + j * 16 + e % 16;
-        const size_t pix = pix0 + r;
-        const float t3 = sa[e] + b3[col];
-        const float sh = proj ? sb[e] + bs[col]
-                              : __bfloat162float(x[pix * cin + col]);
-        out[pix * cout + col] = __float2bfloat16_rn(fmaxf(t3 + sh, 0.0f));
+    for (int n = 0; n < kN3; ++n) {
+      const int col = q * NB3 + wn * (NB3 / 2) + n * 8 + 2 * tq;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int p = wm * 32 + i * 16 + gq + 8 * hh;
+          float v0 = acc[i][n][2 * hh] + bias[n].x;
+          float v1 = acc[i][n][2 * hh + 1] + bias[n].y;
+          if (g.proj) {
+            v0 += sbias[n].x;
+            v1 += sbias[n].y;
+          } else {
+            const float2 xv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&res[i][n][hh]));
+            v0 += xv.x;
+            v1 += xv.y;
+          }
+          *reinterpret_cast<uint32_t*>(t1 + p * kLdB + col - q * NB3) =
+              pack_bf16(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+        }
       }
-      __syncwarp();
+    }
+    // The staged tile leaves in 16-byte pieces, a pixel's NB3 columns
+    // contiguous: whole sectors, where the accumulator layout would write
+    // 4 bytes a lane and half sectors.
+    __syncthreads();
+    for (int i = tid; i < kPix * (NB3 / 8); i += kThreads) {
+      const int p = i / (NB3 / 8), pc = i % (NB3 / 8);
+      const int gy = y0 + p / kTW, gx = x0 + p % kTW;
+      if (gy >= h || gx >= wd) continue;
+      const size_t pix = ((size_t)bimg * h + gy) * wd + gx;
+      *reinterpret_cast<uint4*>(g.out + pix * cout + q * NB3 + pc * 8) =
+          *reinterpret_cast<const uint4*>(t1 + p * kLdB + pc * 8);
     }
   }
+  cp_async_wait<0>();
 }
 
-template <int M>
-int launch(const void* x, const void* w1, const void* b1, const void* w2,
-           const void* b2, const void* w3, const void* b3, const void* ws,
-           const void* bs, void* out, int b, int h, int wd, int cin,
-           int cout, int proj, cudaStream_t st) {
+template <int M, int NB3>
+int launch(const Args& a, int b, cudaStream_t st) {
   const size_t smem = Layout<M>::kTotal;
   cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bottleneck_kernel<M, NB3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(wd / kTW, h / kTH, b);
-  bottleneck_kernel<M><<<grid, kThreads, smem, st>>>(
-      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
-      (const float*)b2, (const bf16*)w3, (const float*)b3, (const bf16*)ws,
-      (const float*)bs, (bf16*)out, h, wd, cin, cout, proj);
+  dim3 grid((a.wd + kTW - 1) / kTW, (a.h + kTH - 1) / kTH, b);
+  bottleneck_kernel<M, NB3><<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -256,24 +448,27 @@ extern "C" {
 
 // x (B, H, W, Cin) bf16; w1 (Cin, M), w2 (9, M, M), w3 (M, Cout), ws
 // (Cin, Cout) bf16; b1 (M,), b2 (M,), b3 (Cout,), bs (Cout,) f32; out
-// (B, H, W, Cout) bf16. ws/bs are read only when proj != 0.
+// (B, H, W, Cout) bf16. ws/bs are read only when proj != 0. Any H, W.
 int mrt_bottleneck(const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, const void* w3,
                    const void* b3, const void* ws, const void* bs, void* out,
                    int b, int h, int wd, int cin, int m, int cout, int proj,
                    void* stream) {
-  if (h % kTH || wd % kTW || cin % kKC || cout % 64 ||
+  if (h <= 0 || wd <= 0 || cin % kKC || cout % 64 ||
       (proj && (ws == nullptr || bs == nullptr)) || (!proj && cin != cout)) {
     return (int)cudaErrorInvalidValue;
   }
   if (b == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  const Args a{(const bf16*)x, (const bf16*)w1, (const float*)b1,
+               (const bf16*)w2, (const float*)b2, (const bf16*)w3,
+               (const float*)b3, (const bf16*)ws, (const float*)bs,
+               (bf16*)out, h, wd, cin, cout, proj};
+  const bool wide = cout % 128 == 0;
   if (m == 64)
-    return launch<64>(x, w1, b1, w2, b2, w3, b3, ws, bs, out, b, h, wd, cin,
-                      cout, proj, st);
+    return wide ? launch<64, 128>(a, b, st) : launch<64, 64>(a, b, st);
   if (m == 128)
-    return launch<128>(x, w1, b1, w2, b2, w3, b3, ws, bs, out, b, h, wd, cin,
-                       cout, proj, st);
+    return wide ? launch<128, 128>(a, b, st) : launch<128, 64>(a, b, st);
   return (int)cudaErrorInvalidValue;
 }
 

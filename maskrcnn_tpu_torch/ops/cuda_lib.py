@@ -110,7 +110,7 @@ def _declare(lib) -> None:
         "mrt_nms_keep": [p, p, p, i, i, f, i, i, p],
         "mrt_nms_max_boxes": [i],
         "mrt_roi_align": pool + [i, p, p],
-        "mrt_roi_classifier_head": pool + [p, p, i] * 3 + [p, p, p, p],
+        "mrt_roi_classifier_head": pool + [p, p, i] * 3 + [i] + [p] * 6,
         "mrt_roi_mask_head": pool + [p] * 7 + [i, p, p],
         "mrt_stem": [p, p, p, p, i, i, i, p],
         "mrt_bottleneck": [p, p, p, p, p, p, p, p, p, p,

@@ -13,10 +13,13 @@ blended in float32 (x first, then y), samples out of range and invalid ROIs
 give 0.
 
 K5 and K6 pool exactly so and feed the pooled values, rounded to the
-features' dtype, to the head without writing them to device memory; they
-return only the head's output (the TPU kernel also returned the pool, which
-the forward drops). Invalid ROIs pool to zero rows and still go through the
-head, as in the TPU kernel.
+features' dtype, to the head; they return only the head's output (the TPU
+kernel also returned the pool, which the forward drops). K6 keeps the pool
+on chip; K5 writes it once to a scratch tile (K2's kernel, inside K5's
+launch function) and reads it back by TMA, because pooling inside its GEMM
+repeated the gathers for every column block (csrc/roi_classifier_head.cu).
+Invalid ROIs pool to zero rows and still go through the head, as in the
+TPU kernel.
 """
 
 from __future__ import annotations
@@ -206,6 +209,32 @@ def classifier_head_plain(features: Sequence[torch.Tensor], ys: torch.Tensor,
     return h @ head["w3"].to(f) + head["b3"]
 
 
+# K5's GEMM tiles (`csrc/roi_classifier_head.cu`): 128 rows x 256 columns
+# a block, K in chunks of 64 through a 4-stage ring of A + B tiles.
+HEAD_BM, HEAD_BN, HEAD_BK, HEAD_STAGES = 128, 256, 64, 4
+SMEM_PER_BLOCK = 232448  # H100: the most dynamic shared memory a block has
+
+
+def classifier_head_plan(m: int, k1: int, n1: int, sms: int = 132) -> dict:
+    """Launch plan of K5's dense 1 (pooled (m, k1) @ W1 (k1, n1)): output
+    tiles, the split of its k1 / 64 K chunks into groups (each group a grid
+    layer of blocks writing float32 partial sums, added in group order
+    after), and the shared memory a block takes. Groups are added until the
+    blocks fill the SMs once (at most 4): 2 at M = 2000 (64 tiles, 128
+    blocks)."""
+    rows = -(-m // HEAD_BM)
+    tiles = rows * (n1 // HEAD_BN)
+    chunks = k1 // HEAD_BK
+    split = max(1, min(4, chunks, sms // max(tiles, 1)))
+    groups = [(g * chunks // split, (g + 1) * chunks // split)
+              for g in range(split)]
+    smem = (1024 + HEAD_STAGES * (HEAD_BM + HEAD_BN) * HEAD_BK * 2
+            + 16 * HEAD_STAGES)
+    return {"rows": rows * HEAD_BM, "grid": (rows, n1 // HEAD_BN, split),
+            "split": split, "chunks": chunks, "groups": groups,
+            "smem_bytes": smem}
+
+
 def classifier_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
                          xs: torch.Tensor, level: torch.Tensor,
                          valid: torch.Tensor, rois_per_image: int,
@@ -216,8 +245,8 @@ def classifier_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
     c = features[0].shape[-1]
     k1, n1 = head["w1"].shape
     n2, n3 = head["w2"].shape[1], head["w3"].shape[1]
-    if k1 != p * p * c or c % 16 or c > 256 or n1 % 256 or n2 % 128 \
-            or n3 % 128:
+    if k1 != p * p * c or k1 % HEAD_BK or n1 % HEAD_BN or n2 % HEAD_BN \
+            or n3 % HEAD_BN:
         raise ValueError(f"classifier head kernel does not take C={c}, "
                          f"pool {p}, widths {k1}->{n1}->{n2}->{n3}")
     shapes = {"w1": (k1, n1), "w2": (n1, n2), "w3": (n2, n3)}
@@ -225,21 +254,25 @@ def classifier_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
         cuda_lib.require(head[k], k, torch.bfloat16, shape)
         cuda_lib.require(head["b" + k[1]], "b" + k[1], torch.float32,
                          (1, shape[1]))
-    # The kernel reads each weight matrix transposed, (N, K): the two
-    # bf16 values of a tensor-core B operand are then neighbours.
-    wt = [head[k].t().contiguous() for k in ("w1", "w2", "w3")]
-    rows = -(-m // 64) * 64          # the kernel's ROI tile
     dev = ys.device
+    plan = classifier_head_plan(
+        m, k1, n1,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    rows = plan["rows"]
+    pooled = torch.empty((m, k1), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((plan["split"], rows, n1), dtype=torch.float32,
+                       device=dev)
     h1 = torch.empty((rows, n1), dtype=torch.bfloat16, device=dev)
     h2 = torch.empty((rows, n2), dtype=torch.bfloat16, device=dev)
     out = torch.empty((rows, n3), dtype=torch.float32, device=dev)
     lib = cuda_lib.load()
     with torch.cuda.device(dev):
         rc = lib.mrt_roi_classifier_head(
-            *args, wt[0].data_ptr(), head["b1"].data_ptr(), n1,
-            wt[1].data_ptr(), head["b2"].data_ptr(), n2, wt[2].data_ptr(),
-            head["b3"].data_ptr(), n3, h1.data_ptr(), h2.data_ptr(),
-            out.data_ptr(), cuda_lib.stream_ptr(ys))
+            *args, head["w1"].data_ptr(), head["b1"].data_ptr(), n1,
+            head["w2"].data_ptr(), head["b2"].data_ptr(), n2,
+            head["w3"].data_ptr(), head["b3"].data_ptr(), n3, plan["split"],
+            pooled.data_ptr(), part.data_ptr(), h1.data_ptr(),
+            h2.data_ptr(), out.data_ptr(), cuda_lib.stream_ptr(ys))
     cuda_lib.check(rc, "roi_classifier_head")
     cuda_lib.launches["roi_classifier_head"] += 1
     return out[:m]

@@ -93,7 +93,9 @@ def test_kernel_gates_stay_off_on_cpu():
     assert not bottleneck_cuda.chain_supported(
         torch.zeros((1, 32, 32, 64)), torch.bfloat16, blocks)
     assert bottleneck_cuda.block_supported((1, 32, 32, 64), blocks[0])
-    assert not bottleneck_cuda.block_supported((1, 30, 32, 64), blocks[0])
+    # the kernel masks ragged edge tiles itself; channel widths still gate
+    assert bottleneck_cuda.block_supported((1, 30, 37, 64), blocks[0])
+    assert not bottleneck_cuda.block_supported((1, 32, 32, 48), blocks[0])
     # the fused heads (K5, K6) take their plain versions on the CPU
     cfg = tiny_test_config().replace(fuse_classifier_head=True,
                                      fuse_mask_head=True,
@@ -138,13 +140,14 @@ def _roi_case(seed=0, b=2, c=32, base=64, n=50, dtype=torch.float32):
     return feats, ys, xs, level, valid, n
 
 
-def _chain_case(seed=0):
+def _chain_case(seed=0, stage=2, cin=64, mid=64, cout=256, hw=(32, 32)):
+    """A projection block, then two identity blocks."""
     rng = np.random.default_rng(seed)
-    params = stage_params(rng, 2, 64, 64, 256, "abc", True)
+    params = stage_params(rng, stage, cin, mid, cout, "abc", True)
     from maskrcnn_tpu_torch.io.weights import params_from_numpy
     blocks = bottleneck_cuda.fold_bottleneck_chain(
-        params_from_numpy(params), 2, "abc")
-    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 64))
+        params_from_numpy(params), stage, "abc")
+    x = torch.from_numpy(rng.standard_normal((2, *hw, cin))
                          .astype(np.float32)).to(torch.bfloat16)
     return x, blocks
 
@@ -210,6 +213,47 @@ def test_wrappers_take_plain_version_on_cpu():
     assert not any(cuda_lib.launches.values())
 
 
+@pytest.mark.parametrize("m", [2000, 74, 1, 300])
+def test_classifier_head_plan_covers_output_once(m):
+    """K5's dense-1 plan: the tiles cover the (M, 1024) output exactly once
+    in each K group, the groups partition the 196 K chunks of 12544, and a
+    block's shared memory fits the H100's 232,448 bytes."""
+    k1, n1 = 49 * 256, 1024
+    plan = roi_align_cuda.classifier_head_plan(m, k1, n1)
+    gx, gy, split = plan["grid"]
+    rows = plan["rows"]
+    assert rows >= m > rows - roi_align_cuda.HEAD_BM
+    cover = np.zeros((rows, n1), np.int32)
+    for bx in range(gx):
+        for by in range(gy):
+            cover[bx * 128:(bx + 1) * 128, by * 256:(by + 1) * 256] += 1
+    assert (cover == 1).all()
+    chunks = [c for lo, hi in plan["groups"] for c in range(lo, hi)]
+    assert chunks == list(range(k1 // 64)) and split == len(plan["groups"])
+    assert all(hi > lo for lo, hi in plan["groups"])
+    assert plan["smem_bytes"] <= roi_align_cuda.SMEM_PER_BLOCK
+    assert gx * gy * split <= 132 or split == 1
+    if m == 2000:
+        assert (gx, gy, split) == (16, 4, 2)
+
+
+@pytest.mark.parametrize("shape,mid,cout,proj,ok", [
+    ((2, 256, 256, 64), 64, 256, True, True),     # res2a at 1024^2
+    ((2, 128, 128, 512), 128, 512, False, True),  # res3 b-d
+    ((2, 30, 37, 64), 64, 256, True, True),       # ragged edge tiles
+    ((1, 1, 1, 256), 64, 256, False, True),       # one pixel
+    ((2, 32, 32, 64), 96, 256, True, False),      # mid width 96
+    ((2, 32, 32, 48), 64, 256, True, False),      # Cin not a multiple of 64
+    ((2, 32, 32, 64), 64, 256, False, False),     # identity, Cin != Cout
+])
+def test_block_supported_takes_any_height_and_width(shape, mid, cout, proj,
+                                                    ok):
+    blk = {"w1": torch.zeros(shape[-1], mid), "w3": torch.zeros(mid, cout)}
+    if proj:
+        blk["ws"] = torch.zeros(shape[-1], cout)
+    assert bottleneck_cuda.block_supported(shape, blk) == ok
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
@@ -259,9 +303,16 @@ def test_gpu_stem_kernel_matches_plain():
 
 
 @pytest.mark.gpu
-def test_gpu_chain_kernel_matches_plain():
+@pytest.mark.parametrize("stage,cin,mid,cout,hw", [
+    (2, 64, 64, 256, (32, 32)), (2, 64, 64, 256, (20, 37)),
+    (3, 256, 128, 512, (16, 32)), (3, 256, 128, 512, (13, 21)),
+    (2, 64, 64, 192, (9, 17))],
+    ids=["mid64", "mid64-ragged", "mid128", "mid128-ragged", "cout192"])
+def test_gpu_chain_kernel_matches_plain(stage, cin, mid, cout, hw):
+    """Mid widths 64 and 128, a projection then identity blocks, edge tiles
+    the 8 x 16 tile does not divide, and 64-column output chunks."""
     dev = _card()
-    x, blocks = _chain_case()
+    x, blocks = _chain_case(stage=stage, cin=cin, mid=mid, cout=cout, hw=hw)
     x = x.to(dev)
     blocks = [{k: v.to(dev) for k, v in b.items()} for b in blocks]
     want = bottleneck_cuda.chain_plain(x, blocks).float()
@@ -273,9 +324,13 @@ def test_gpu_chain_kernel_matches_plain():
 
 
 @pytest.mark.gpu
-def test_gpu_classifier_head_kernel_matches_plain():
+@pytest.mark.parametrize("n", [20, 37])
+def test_gpu_classifier_head_kernel_matches_plain(n):
+    """Full widths (C = 256, 12544 -> 1024 -> 1024 -> 512), 2 x n ROIs (not
+    a multiple of the 128-row tile), every ninth ROI invalid."""
     dev = _card()
-    feats, prep, n, head, _ = _head_case(dtype=torch.bfloat16)
+    feats, prep, n, head, _ = _head_case(n=n, dtype=torch.bfloat16)
+    assert not prep[3].all()
     args = ([f.to(dev) for f in feats], *[t.to(dev) for t in prep], n,
             {k: v.to(dev) for k, v in head.items()})
     want = roi_align_cuda.classifier_head_plain(*args)
