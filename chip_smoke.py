@@ -13,9 +13,13 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            take (`bound_ms`) and, where one PyTorch call computes the same
            function, that call's time (`library_ms`, never used by the port;
            for K5 and K6 the unfused route, K2 and then the head, several
-           calls); K4 and K5 also with L2 cold (`ms_l2_cold`: a 256 MB
-           buffer written before each timed call), their rate (`tflops`)
-           and `share_of_bound` (bound_ms / ms)
+           calls); every `ms` is back-to-back calls between CUDA events;
+           every row with `share_of_bound` (bound_ms / ms); K2, K4, K5 and
+           K6 also with L2 cold (`ms_l2_cold`: a 256 MB buffer written
+           before each timed call) and their rate (`tflops`); K1 and K2,
+           shorter than their wrappers' Python, also as 20 calls in one
+           CUDA graph (`ms_graph`); K1, K4, K5, K6 with the device kernels
+           one call launches (torch.profiler)
   small    the detector forward on the card against the same forward on the
            CPU (plain path), tiny config in float32
   e2e      `MaskRCNNDetector.detect_images` at R101-FPN @ 1024^2, 81 classes,
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +89,65 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_graph(fn, reps: int = 20, replays: int = 10) -> float:
+    """Mean device time of fn() with the host's dispatch taken out: `reps`
+    calls captured in one CUDA graph, replayed `replays` times between CUDA
+    events. For kernels shorter than the wrapper's Python, where
+    back-to-back calls time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def kernels_per_call(fn, reps: int = 3) -> dict:
+    """The device kernels one call of fn launches (the port's and
+    PyTorch's), by name and in all: torch.profiler over `reps` calls after
+    a warm-up. A trace that shows no device kernel at all (the profiler
+    loses one now and then) is taken again, three times at most; None
+    where none showed any."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            if us and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                key = re.sub(r"\(anonymous namespace\)::|\(.*|^void ", "",
+                             ev.key)[:60]
+                by_name[key] = by_name.get(key, 0) + ev.count / reps
+        if by_name:
+            return {"kernel_launches_per_call": sum(by_name.values()),
+                    "kernels_per_call": by_name,
+                    "profiler_attempts": attempt + 1}
+    return {"kernel_launches_per_call": None, "kernels_per_call": None,
+            "profiler_attempts": 3}
+
+
 def cuda_ms_l2_cold(fn, reps: int, warmup: int = 1,
                     flush_bytes: int = 256 << 20) -> float:
     """Mean device time of fn() with L2 cold: before each timed call a
@@ -107,9 +171,9 @@ def cuda_ms_l2_cold(fn, reps: int, warmup: int = 1,
     return total / reps
 
 
-def roofline(ms: float, flops: float, bnd: tuple[float, str]) -> dict:
-    """Achieved rate and the share of the card's bound a kernel reaches."""
-    return {"tflops": flops / ms / 1e9, "share_of_bound": bnd[0] / ms}
+def tflops(ms: float, flops: float) -> dict:
+    """The rate a kernel achieves on the operations its bound counts."""
+    return {"tflops": flops / ms / 1e9}
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -141,7 +205,8 @@ def record(name, route, source, replaces, ms, plain_ms, err, tol, bnd,
     row = {"name": name, "route": route, "source": source,
            "replaces": replaces, "launches": None, "max_abs_err": err,
            "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound,
-           "bound_by": by, "library_ms": library_ms}
+           "bound_by": by, "share_of_bound": t_bound / ms,
+           "library_ms": library_ms}
     row.update(extra or {})
     emit({"phase": name, **row})
     if not (err <= tol if ok is None else ok):
@@ -197,7 +262,9 @@ def check_nms(dev, rng, batch):
         gi, gv = _compact(got, n, max_out)
         idx_err = float((wi - gi).abs().max()) if torch.equal(wv, gv) \
             else float(n)
-        ms = cuda_ms(lambda: nms_cuda.nms_keep(boxes, cand, t, max_out), 50)
+        call = lambda: nms_cuda.nms_keep(boxes, cand, t, max_out)
+        ms = cuda_ms(call, 50)
+        ms_graph = cuda_ms_graph(call)
         plain_ms = cuda_ms(
             lambda: nms_cuda.nms_keep_plain(boxes, cand, t, max_out), 2, 1)
         tests = nms_work(boxes, want, cand, t, max_out)
@@ -207,8 +274,13 @@ def check_nms(dev, rng, batch):
             idx_err, 0.0,
             bound(nbytes(boxes, cand) + cand.numel(), 20.0 * tests,
                   F32_FLOPS), None,
-            {"shape": [batch, n], "iou": t, "max_out": max_out,
-             "kept": int(gv.sum()), "iou_tests": tests}))
+            {"ms_graph": ms_graph, "shape": [batch, n], "iou": t,
+             "max_out": max_out,
+             "kept": int(gv.sum()), "iou_tests": tests,
+             "chunks_walked": [
+                 (int(gi[i][gv[i]].max()) if int(gv[i].sum()) == max_out
+                  else n - 1) // 64 + 1 for i in range(batch)],
+             **kernels_per_call(call)}))
     return rows
 
 
@@ -244,6 +316,8 @@ def check_roi_align(dev, rng, batch, pyramid):
         # order; allow one bf16 ulp of the largest output
         tol = 2.0 ** -8 * want.float().abs().max().item()
         ms = cuda_ms(lambda: roi_align_cuda.roi_align(*args), 20)
+        ms_graph = cuda_ms_graph(lambda: roi_align_cuda.roi_align(*args))
+        ms_cold = cuda_ms_l2_cold(lambda: roi_align_cuda.roi_align(*args), 10)
         plain_ms = cuda_ms(lambda: roi_align_cuda.roi_align_plain(*args), 3)
         cells = distinct_cells(ys, xs, level, valid, n, hw)
         c = pyramid[0].shape[-1]
@@ -255,7 +329,9 @@ def check_roi_align(dev, rng, batch, pyramid):
             "maskrcnn_tpu_torch/csrc/roi_align.cu",
             "maskrcnn_tpu/ops/roi_align_pallas.py:716", ms, plain_ms, err,
             tol, bound(moved, 10.0 * got.numel(), F32_FLOPS), None,
-            {"rois": [batch, n], "rois_per_level": levels,
+            {"ms_graph": ms_graph, "ms_l2_cold": ms_cold,
+             **tflops(ms, 10.0 * got.numel()),
+             "rois": [batch, n], "rois_per_level": levels,
              "distinct_cells": cells,
              "plain_max_abs": want.float().abs().max().item()}))
     return rows
@@ -330,10 +406,11 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
         "maskrcnn_tpu_torch/csrc/roi_classifier_head.cu",
         "maskrcnn_tpu/ops/roi_align_pallas.py:716", ms, plain_ms, err,
         tol, bnd, library_ms,
-        {"ms_l2_cold": ms_cold, **roofline(ms, flops, bnd),
+        {"ms_l2_cold": ms_cold, **tflops(ms, flops),
          "rois": [batch, n], "widths": [k1, n1, n2, n3],
          "argmax_same": argmax_same, "argmax_tol": 0.995,
-         "kernel_launches_per_call": 5, "distinct_cells": cells,
+         **kernels_per_call(lambda: rac.roi_classifier_head(*args)),
+         "distinct_cells": cells,
          "library": "K2 pool 7, then models/heads.py (cuBLAS): several "
                     "calls", "plain_max_abs": want.abs().max().item()},
         ok=err <= tol and argmax_same >= 0.995))
@@ -348,7 +425,8 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
     want = rac.mask_head_plain(*args)
     got = rac.roi_mask_head(*args)
     err = (got - want).abs().max().item()
-    ms = cuda_ms(lambda: rac.roi_mask_head(*args), 10)
+    ms = cuda_ms(lambda: rac.roi_mask_head(*args), 20)
+    ms_cold = cuda_ms_l2_cold(lambda: rac.roi_mask_head(*args), 10)
     plain_ms = cuda_ms(lambda: rac.mask_head_plain(*args), 3)
     library_ms = cuda_ms(lambda: heads.apply_mask_head(
         params, rac.roi_align(pyramid, *prep, n), dtype=bf16,
@@ -364,7 +442,9 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
         "K6_roi_mask_head", "cuda", "maskrcnn_tpu_torch/csrc/roi_mask_head.cu",
         "maskrcnn_tpu/ops/roi_align_pallas.py:716", ms, plain_ms, err, 1e-2,
         bound(moved, flops, BF16_FLOPS), library_ms,
-        {"rois": [batch, n], "blocks": m, "distinct_cells": cells,
+        {"ms_l2_cold": ms_cold, **tflops(ms, flops),
+         **kernels_per_call(lambda: rac.roi_mask_head(*args)),
+         "rois": [batch, n], "distinct_cells": cells,
          "library": "K2 pool 14, then models/heads.py (cuDNN convs, "
                     "einsum select): several calls",
          "mean_abs_err": (got - want).abs().mean().item()}))
@@ -467,9 +547,11 @@ def check_chains(dev, rng, batch, params):
             "maskrcnn_tpu/ops/bottleneck_pallas.py:213", ms, plain_ms,
             err.max().item(), "0.02*|plain| + 0.01*max|plain| each",
             bnd, library_ms,
-            {"ms_l2_cold": ms_cold, **roofline(ms, flops, bnd),
+            {"ms_l2_cold": ms_cold, **tflops(ms, flops),
              "shape": list(x.shape), "cout": blocks[-1]["w3"].shape[1],
-             "elements_over_tol": bad, "kernel_launches_per_chain": 3,
+             "elements_over_tol": bad,
+             **kernels_per_call(
+                 lambda: bc.fused_bottleneck_chain(x, blocks)),
              "plain_max_abs": want.abs().max().item()},
             ok=bad == 0))
     return rows
@@ -503,14 +585,16 @@ def check_small_forward(dev, seed):
 
 
 # Profile groups by kernel name. roi_align_kernel is K2 on the e2e path and
-# K5's pool pass on the stream path (K5 pools once, then runs its GEMMs).
-KERNEL_GROUPS = (("K1 nms", ("nms_kernel",)),
+# the pool pass of K5 and K6 on the stream path (each pools once, then runs
+# its GEMMs).
+KERNEL_GROUPS = (("K1 nms", ("nms_mask_kernel", "nms_walk_kernel")),
                  ("K2 roi_align", ("roi_align_kernel",)),
                  ("K3 stem", ("stem_kernel",)),
                  ("K4 bottleneck", ("bottleneck_kernel",)),
                  ("K5 roi_classifier_head", ("head_gemm_kernel",
                                              "split_sum_kernel")),
-                 ("K6 roi_mask_head", ("mask_head_kernel",)))
+                 ("K6 roi_mask_head", ("mask_conv_kernel",
+                                       "mask_deconv_kernel")))
 E2E_KERNELS = ("nms", "roi_align", "stem", "bottleneck")
 STREAM_KERNELS = ("nms", "stem", "bottleneck", "roi_classifier_head",
                   "roi_mask_head")

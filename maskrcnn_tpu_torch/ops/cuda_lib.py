@@ -27,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD = os.path.join(os.path.dirname(os.path.dirname(__file__)), "build")
 SOURCES = ("nms.cu", "roi_align.cu", "stem.cu", "bottleneck.cu",
            "roi_classifier_head.cu", "roi_mask_head.cu")
-HEADERS = ("roi_head_common.cuh",)
+HEADERS = ("roi_head_common.cuh", "head_gemm.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 # Per-source extra flags. NMS must equal the sequential greedy bit for bit:
@@ -107,11 +107,10 @@ def _declare(lib) -> None:
     # rois_per_image, P: the pool's arguments (roi_align_cuda._pool_args)
     pool = [p] * 4 + [i] * 9 + [p] * 4 + [i] * 3
     sig = {
-        "mrt_nms_keep": [p, p, p, i, i, f, i, i, p],
-        "mrt_nms_max_boxes": [i],
+        "mrt_nms_keep": [p, p, p, p, i, i, f, i, p],
         "mrt_roi_align": pool + [i, p, p],
         "mrt_roi_classifier_head": pool + [p, p, i] * 3 + [i] + [p] * 6,
-        "mrt_roi_mask_head": pool + [p] * 7 + [i, p, p],
+        "mrt_roi_mask_head": pool + [p] * 7 + [i] * 4 + [p] * 4,
         "mrt_stem": [p, p, p, p, i, i, i, p],
         "mrt_bottleneck": [p, p, p, p, p, p, p, p, p, p,
                            i, i, i, i, i, i, i, p],

@@ -14,12 +14,12 @@ give 0.
 
 K5 and K6 pool exactly so and feed the pooled values, rounded to the
 features' dtype, to the head; they return only the head's output (the TPU
-kernel also returned the pool, which the forward drops). K6 keeps the pool
-on chip; K5 writes it once to a scratch tile (K2's kernel, inside K5's
-launch function) and reads it back by TMA, because pooling inside its GEMM
-repeated the gathers for every column block (csrc/roi_classifier_head.cu).
-Invalid ROIs pool to zero rows and still go through the head, as in the
-TPU kernel.
+kernel also returned the pool, which the forward drops). Both write the
+pool once to a scratch tile (K2's kernel, inside their launch functions)
+and read it back by TMA into the GEMM tile they share
+(`csrc/head_gemm.cuh`); K6 then runs its head layer by layer over all
+ROIs. Invalid ROIs pool to zero rows and still go through the head, as in
+the TPU kernel.
 """
 
 from __future__ import annotations
@@ -212,6 +212,9 @@ def classifier_head_plain(features: Sequence[torch.Tensor], ys: torch.Tensor,
 # K5's GEMM tiles (`csrc/roi_classifier_head.cu`): 128 rows x 256 columns
 # a block, K in chunks of 64 through a 4-stage ring of A + B tiles.
 HEAD_BM, HEAD_BN, HEAD_BK, HEAD_STAGES = 128, 256, 64, 4
+# the ring (aligned to 1 KB) and its barriers: `csrc/head_gemm.cuh` kGemmSmem
+HEAD_SMEM = 1024 + HEAD_STAGES * (HEAD_BM + HEAD_BN) * HEAD_BK * 2 \
+    + 16 * HEAD_STAGES
 SMEM_PER_BLOCK = 232448  # H100: the most dynamic shared memory a block has
 
 
@@ -228,11 +231,9 @@ def classifier_head_plan(m: int, k1: int, n1: int, sms: int = 132) -> dict:
     split = max(1, min(4, chunks, sms // max(tiles, 1)))
     groups = [(g * chunks // split, (g + 1) * chunks // split)
               for g in range(split)]
-    smem = (1024 + HEAD_STAGES * (HEAD_BM + HEAD_BN) * HEAD_BK * 2
-            + 16 * HEAD_STAGES)
     return {"rows": rows * HEAD_BM, "grid": (rows, n1 // HEAD_BN, split),
             "split": split, "chunks": chunks, "groups": groups,
-            "smem_bytes": smem}
+            "smem_bytes": HEAD_SMEM}
 
 
 def classifier_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
@@ -351,6 +352,28 @@ def mask_head_plain(features: Sequence[torch.Tensor], ys: torch.Tensor,
         m, 2 * p, 2 * p)
 
 
+def mask_head_plan(m: int) -> dict:
+    """Launch plan of K6's layer kernels (`csrc/roi_mask_head.cu`) over m
+    ROIs, which `mask_head_cuda` hands to the kernel: block b of a conv
+    launch (and of each of the deconv's 4 parity columns) computes output
+    positions [128 b, 128 b + 128) of the m x 14 x 14 grid taken in order
+    (roi, y, x), `origins[b]` = the (roi, y, x) of its first; positions past
+    m x 196 are dropped. K is 9 taps x 256 channels in chunks of 64 for a
+    conv, 256 channels for the deconv. The kernel refuses a plan whose
+    tiles do not cover the positions once or whose chunks do not match
+    those K."""
+    rows = m * MASK_POOL ** 2
+    tiles = -(-rows // HEAD_BM)
+    origins = [(p // MASK_POOL ** 2, p % MASK_POOL ** 2 // MASK_POOL,
+                p % MASK_POOL) for p in range(0, tiles * HEAD_BM, HEAD_BM)]
+    return {"rows": rows, "tile_rows": HEAD_BM, "origins": origins,
+            "conv_grid": (tiles,), "deconv_grid": (tiles, 4),
+            "conv_chunks": 9 * MASK_CHANNELS // HEAD_BK,
+            "deconv_chunks": MASK_CHANNELS // HEAD_BK,
+            "padding": tiles * HEAD_BM / max(rows, 1),
+            "smem_bytes": HEAD_SMEM}
+
+
 def mask_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
                    xs: torch.Tensor, level: torch.Tensor,
                    valid: torch.Tensor, rois_per_image: int, mask: dict,
@@ -371,18 +394,21 @@ def mask_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
     cuda_lib.require(mask["bcls"], "bcls", torch.float32, (nc,))
     ids = class_ids.reshape(m).to(torch.int32).contiguous()
     cuda_lib.require(ids, "class_ids", torch.int32, (m,))
-    # Transposed to (N, K) for the tensor-core B operand, as in K5.
-    wconv = mask["wconv"].transpose(1, 2).contiguous()
-    wdec = mask["wdec"].t().contiguous()
-    out = torch.empty((m, 2 * p, 2 * p), dtype=torch.float32,
-                      device=ys.device)
+    dev = ys.device
+    # the pool, then the conv activations ping-pong between the two
+    act = [torch.empty((m, p, p, c), dtype=torch.bfloat16, device=dev)
+           for _ in range(2)]
+    out = torch.empty((m, 2 * p, 2 * p), dtype=torch.float32, device=dev)
+    plan = mask_head_plan(m)
     lib = cuda_lib.load()
-    with torch.cuda.device(ys.device):
+    with torch.cuda.device(dev):
         rc = lib.mrt_roi_mask_head(
-            *args, wconv.data_ptr(), mask["bconv"].data_ptr(),
-            wdec.data_ptr(), mask["bdec"].data_ptr(),
+            *args, mask["wconv"].data_ptr(), mask["bconv"].data_ptr(),
+            mask["wdec"].data_ptr(), mask["bdec"].data_ptr(),
             mask["kcls"].data_ptr(), mask["bcls"].data_ptr(), ids.data_ptr(),
-            nc, out.data_ptr(), cuda_lib.stream_ptr(ys))
+            nc, plan["conv_grid"][0], plan["conv_chunks"],
+            plan["deconv_chunks"], act[0].data_ptr(), act[1].data_ptr(),
+            out.data_ptr(), cuda_lib.stream_ptr(ys))
     cuda_lib.check(rc, "roi_mask_head")
     cuda_lib.launches["roi_mask_head"] += 1
     return out

@@ -1,7 +1,10 @@
-"""Ablation probes of K4 (bottleneck chain) and K5 (classifier head) on one
-NVIDIA card, at the main paths' shapes (R101-FPN @ 1024^2, batch 2):
+"""Ablation probes of K1 (NMS), K4 (bottleneck chain), K5 (classifier head)
+and K6 (mask head) on one NVIDIA card, at the main paths' shapes (R101-FPN
+@ 1024^2, batch 2):
 
-    python3 -m maskrcnn_tpu_torch.tools.probe_kernels
+    python3 -m maskrcnn_tpu_torch.tools.probe_kernels [K1 K4 K5 K6 ...]
+
+(names: the calls to time, by prefix; all by default)
 
 Each probe rebuilds the kernels from a copy of `csrc/` with one piece of
 work taken out (the results are then wrong; only the time is read) and
@@ -97,6 +100,7 @@ def main() -> int:
     from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
     from maskrcnn_tpu_torch.models import mask_rcnn as M
     from maskrcnn_tpu_torch.ops import bottleneck_cuda as bc
+    from maskrcnn_tpu_torch.ops import nms_cuda
     from maskrcnn_tpu_torch.ops import roi_align as ra
     from maskrcnn_tpu_torch.ops import roi_align_cuda as rac
 
@@ -115,6 +119,18 @@ def main() -> int:
     head = rac.pack_classifier_head(params, 81, torch.bfloat16)
     calls = {"K5": lambda: rac.roi_classifier_head(pyramid, *prep, 1000,
                                                    head)}
+    rois = cs.spread_rois(rng, 2, 100).to(dev)
+    prep14 = ra.prepare(rois.reshape(-1, 4), hw, (1024, 1024), 224.0, 14)
+    mask = rac.pack_mask_head(params, torch.bfloat16)
+    ids = torch.from_numpy(rng.integers(1, 81, 200).astype(np.int32)).to(dev)
+    calls["K6"] = lambda: rac.roi_mask_head(pyramid, *prep14, 100, mask, ids)
+    for stage, n, t, max_out, classes in (("proposals", 6000, 0.7, 1000, 0),
+                                          ("detections", 1000, 0.3, 100, 8)):
+        boxes = cs.clustered_boxes(rng, 2, n, classes).to(dev)
+        cand = torch.ones((2, n), dtype=torch.bool, device=dev)
+        calls[f"K1_{stage}"] = (
+            lambda boxes=boxes, cand=cand, t=t, max_out=max_out:
+            nms_cuda.nms_keep(boxes, cand, t, max_out))
     for stage, letters, side, cin in ((2, "abc", 256, 64),
                                       (3, "bcd", 128, 512)):
         blocks = bc.fold_bottleneck_chain(params, stage, letters)
@@ -123,6 +139,8 @@ def main() -> int:
         calls[f"K4_res{stage}{letters}"] = (
             lambda x=x, blocks=blocks: bc.fused_bottleneck_chain(x, blocks))
 
+    only = tuple(sys.argv[1:])
+    calls = {k: v for k, v in calls.items() if not only or k.startswith(only)}
     _build(None)
     base = {}
     for name, fn in calls.items():
@@ -130,6 +148,8 @@ def main() -> int:
         print(json.dumps({"probe": "none", "call": name, "ms": base[name],
                           "ms_by_kernel": _by_kernel(fn)}), flush=True)
     for probe in ABLATIONS:
+        if not any(name[:2] == probe[:2].upper() for name in calls):
+            continue
         _build(probe)
         for name, fn in calls.items():
             if name[:2] == probe[:2].upper():

@@ -20,48 +20,12 @@ from maskrcnn_tpu.ops.bottleneck_pallas import (
 from maskrcnn_tpu_torch.io.weights import params_from_numpy
 from maskrcnn_tpu_torch.models import resnet as pt_resnet
 from maskrcnn_tpu_torch.ops import bottleneck_cuda, stem_cuda
-
-
-def rand_bn(rng, c):
-    return {"gamma": rng.uniform(0.5, 1.5, c).astype(np.float32),
-            "beta": rng.uniform(-0.3, 0.3, c).astype(np.float32),
-            "moving_mean": rng.uniform(-0.2, 0.2, c).astype(np.float32),
-            "moving_variance": rng.uniform(0.5, 2.0, c).astype(np.float32)}
-
-
-def rand_conv(rng, kh, kw, cin, cout, scale=None):
-    scale = scale or np.sqrt(2.0 / (kh * kw * cin))
-    return {"kernel": (rng.standard_normal((kh, kw, cin, cout)) * scale
-                       ).astype(np.float32),
-            "bias": (rng.standard_normal(cout) * 0.1).astype(np.float32)}
-
-
-def stage_params(rng, stage, cin, mid, cout, letters, proj):
-    params = {}
-    c = cin
-    for i, letter in enumerate(letters):
-        base, bnb = f"res{stage}{letter}_branch", f"bn{stage}{letter}_branch"
-        params[base + "2a"] = rand_conv(rng, 1, 1, c, mid)
-        params[bnb + "2a"] = rand_bn(rng, mid)
-        params[base + "2b"] = rand_conv(rng, 3, 3, mid, mid)
-        params[bnb + "2b"] = rand_bn(rng, mid)
-        params[base + "2c"] = rand_conv(rng, 1, 1, mid, cout)
-        params[bnb + "2c"] = rand_bn(rng, cout)
-        if i == 0 and proj:
-            params[base + "1"] = rand_conv(rng, 1, 1, c, cout)
-            params[bnb + "1"] = rand_bn(rng, cout)
-        c = cout
-    return params
+from tests.test_torch_gpu import stage_params, stem_params
 
 
 def jax_tree(params):
     return {k: {w: jnp.asarray(v) for w, v in d.items()}
             for k, d in params.items()}
-
-
-def stem_params(rng):
-    return {"conv1": rand_conv(rng, 7, 7, 3, 64, scale=0.05),
-            "bn_conv1": rand_bn(rng, 64)}
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 96, 3)])

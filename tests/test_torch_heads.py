@@ -170,3 +170,32 @@ def test_bf16_pool_within_one_rounding_of_pallas_kernel():
     delta = np.abs(got - want)
     assert delta.max() <= 2.0 ** -7 * np.abs(want).max()
     assert 0.1 < (delta > 0).mean() < 0.6
+
+
+@pytest.mark.parametrize("m", [1, 37, 200])
+def test_mask_head_plan_covers_each_position_once(m):
+    """K6's layer kernels launch this plan (its refusal of a plan off the
+    tiling is a `gpu` test): the 128-position tiles, taken in (roi, y, x)
+    order, cover every position of the M x 14 x 14 grid exactly once, the
+    origins are each tile's first position, the K chunks are the conv's
+    9 x 256 and the deconv's 256 channels, and a block's shared memory
+    fits the H100's 232,448 bytes."""
+    plan = pt_rac.mask_head_plan(m)
+    p = pt_rac.MASK_POOL
+    rows = plan["tile_rows"]
+    assert rows == pt_rac.HEAD_BM == 128 and plan["rows"] == m * p * p
+    cover = np.zeros(m * p * p, np.int32)
+    for roi, y, x in plan["origins"]:
+        first = (roi * p + y) * p + x
+        assert first % rows == 0 and first < m * p * p
+        cover[first:first + rows] += 1
+    assert (cover == 1).all()
+    tiles = len(plan["origins"])
+    assert plan["conv_grid"] == (tiles,) and tiles == -(-m * p * p // rows)
+    assert plan["deconv_grid"] == (tiles, 4)
+    assert plan["conv_chunks"] == 9 * pt_rac.MASK_CHANNELS // 64 == 36
+    assert plan["deconv_chunks"] == pt_rac.MASK_CHANNELS // 64 == 4
+    assert 1.0 <= plan["padding"] < 1.0 + rows / (m * p * p)
+    assert plan["smem_bytes"] <= pt_rac.SMEM_PER_BLOCK
+    if m == 200:
+        assert tiles == 307

@@ -27,23 +27,10 @@ from maskrcnn_tpu_torch.ops.nms import nms_gather, nms_padded
 from maskrcnn_tpu_torch.ops.proposals import generate_proposals as pt_proposals
 from maskrcnn_tpu_torch.ops.roi_align import pyramid_roi_align, roi_levels
 from tests.test_boxes import random_boxes
+from tests.test_torch_gpu import NMS_KINDS as NMS_WALK_KINDS
+from tests.test_torch_gpu import clustered_boxes, nms_case
 
 T = torch.from_numpy
-
-
-def clustered_boxes(rng, n):
-    """Score-sorted boxes in clusters (heavy suppression at either IoU),
-    with zero-area rows and flagged-invalid rows mixed in."""
-    centers = rng.uniform(0.1, 0.9, size=(max(n // 12, 1), 2))
-    pick = centers[rng.integers(0, len(centers), n)]
-    half = rng.uniform(0.02, 0.12, size=(n, 2))
-    jitter = rng.normal(0, 0.015, size=(n, 2))
-    yx1 = np.clip(pick + jitter - half, 0, 1)
-    yx2 = np.clip(pick + jitter + half, 0, 1)
-    b = np.concatenate([yx1, yx2], axis=1).astype(np.float32)
-    b[rng.choice(n, n // 10, replace=False)] = 0.0
-    valid = rng.uniform(size=n) > 0.1
-    return b, valid
 
 
 def test_box_ops_match_jax(rng):
@@ -227,3 +214,30 @@ def test_roi_align_matches_pallas_kernel(rng):
         np.testing.assert_allclose(got[agree], want[agree], rtol=0,
                                    atol=1e-5)
         np.testing.assert_allclose(got, flat, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [37, 200, 1000])
+@pytest.mark.parametrize("kind", NMS_WALK_KINDS)
+def test_nms_walk_matches_jax(kind, n):
+    """The plain version (packed mask + chunk walk) keeps the same first
+    max_out boxes as the JAX package's XLA NMS and its TPU kernel in
+    interpret mode, exactly: N not a multiple of 64, a stop inside a chunk,
+    identical and zero-area boxes, candidate holes, pairs at the threshold
+    to an ulp, class-offset boxes at IoU 0.3."""
+    boxes, valid, t, max_out = nms_case(kind, n)
+    got_idx, got_v = nms_padded(T(boxes), T(valid), t, max_out)
+    want_idx, want_v = jax_nms(jnp.asarray(boxes), jnp.asarray(valid), t,
+                               max_out, tile_size=128, impl="xla")
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    keep = nms_keep_pallas(jnp.asarray(boxes), jnp.asarray(valid & (area > 0)),
+                           t, max_out, tile_size=128, interpret=True)
+    want_idx, want_v = jax_compact(keep, n, max_out, False)
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    assert got_v.any()
+    if kind == "identical":
+        assert int(got_v.sum()) == 1
+    if kind == "stop_mid_chunk":
+        assert int(got_v.sum()) == max_out

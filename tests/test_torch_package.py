@@ -1,9 +1,7 @@
-"""Package hygiene of the PyTorch port, its CPU dispatch, and (marked `gpu`)
-each CUDA kernel against its plain version on the card.
-
-The `gpu` tests decide inside the test whether a card is there and skip
-with a reason where there is none; run them on the card with
-`pytest -m gpu tests/test_torch_*.py`."""
+"""Package hygiene of the PyTorch port, its CPU dispatch and its kernels'
+launch plans. The kernels against their plain versions on the card are in
+`tests/test_torch_gpu.py` (marked `gpu`), which two tests here hold to
+importing neither JAX nor the JAX package."""
 
 import os
 import re
@@ -22,8 +20,8 @@ from maskrcnn_tpu_torch.models import mask_rcnn as pt_model
 from maskrcnn_tpu_torch.ops import (bottleneck_cuda, cuda_lib, nms_cuda,
                                     roi_align, roi_align_cuda, stem_cuda)
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
-from tests.test_torch_backbone import stage_params, stem_params
-from tests.test_torch_ops import clustered_boxes
+from tests.test_torch_gpu import (_chain_case, _head_case, _roi_case,
+                                  clustered_boxes, stem_params)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(maskrcnn_tpu_torch.__file__)
@@ -72,6 +70,48 @@ def test_sources_name_no_jax():
             src = f.read()
         assert not pat.search(src), path
         assert "__import__(\"jax" not in src, path
+
+
+# Run first in a subprocess: jax and the JAX package then fail to import.
+_BLOCK_JAX = (
+    "import sys\n"
+    "class _Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'maskrcnn_tpu'):\n"
+    "            raise ImportError('blocked: ' + name)\n"
+    "sys.meta_path.insert(0, _Block())\n")
+
+
+def test_gpu_test_file_imports_no_jax():
+    code = (_BLOCK_JAX + "import tests.test_torch_gpu\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'maskrcnn_tpu'))\n"
+            "print(len(bad), bad[:5])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "0", out.stdout
+
+
+def test_gpu_tests_collect_and_skip_without_jax_or_conftest():
+    """As on the card's machine (no JAX; tests/conftest.py imports it, so
+    the run skips it): every `gpu` test is collected and runs to an end
+    with no failure or error; without a card each skips with its reason."""
+    code = (_BLOCK_JAX + "import pytest\n"
+            "sys.exit(pytest.main(['--noconftest', '-m', 'gpu', '-q', '-rs',"
+            " '-p', 'no:cacheprovider', 'tests/test_torch_gpu.py']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    summary = out.stdout.strip().splitlines()[-1]
+    assert "failed" not in summary and "error" not in summary, summary
+    ran = sum(int(n) for n in re.findall(r"(\d+) (?:passed|skipped)",
+                                         summary))
+    assert ran > 0, summary
+    if not torch.cuda.is_available():
+        assert re.search(r"\d+ skipped", summary), summary
+        assert "passed" not in summary, summary
+        assert "needs an NVIDIA card" in out.stdout
 
 
 def test_entry_points_need_a_card_unless_asked(monkeypatch):
@@ -123,66 +163,6 @@ def _nms_case(seed=0, b=2, n=600):
     rng = np.random.default_rng(seed)
     bx, vd = zip(*[clustered_boxes(rng, n) for _ in range(b)])
     return torch.from_numpy(np.stack(bx)), torch.from_numpy(np.stack(vd))
-
-
-def _roi_case(seed=0, b=2, c=32, base=64, n=50, dtype=torch.float32):
-    rng = np.random.default_rng(seed)
-    feats = [torch.from_numpy(rng.standard_normal(
-        (b, base >> l, base >> l, c)).astype(np.float32)).to(dtype)
-        for l in range(4)]
-    yx1 = rng.uniform(0, 0.7, size=(b * n, 2))
-    wh = rng.uniform(0.02, 0.6, size=(b * n, 2))
-    rois = np.concatenate([yx1, np.minimum(yx1 + wh, 1.0)], -1)
-    rois[::7] = 0.0
-    ys, xs, level, valid = roi_align.prepare(
-        torch.from_numpy(rois.astype(np.float32)),
-        [(f.shape[1], f.shape[2]) for f in feats], (1024, 1024), 224.0, 7)
-    return feats, ys, xs, level, valid, n
-
-
-def _chain_case(seed=0, stage=2, cin=64, mid=64, cout=256, hw=(32, 32)):
-    """A projection block, then two identity blocks."""
-    rng = np.random.default_rng(seed)
-    params = stage_params(rng, stage, cin, mid, cout, "abc", True)
-    from maskrcnn_tpu_torch.io.weights import params_from_numpy
-    blocks = bottleneck_cuda.fold_bottleneck_chain(
-        params_from_numpy(params), stage, "abc")
-    x = torch.from_numpy(rng.standard_normal((2, *hw, cin))
-                         .astype(np.float32)).to(torch.bfloat16)
-    return x, blocks
-
-
-def _head_case(seed=0, b=2, n=20, crop=7, c=256, dtype=torch.float32):
-    """Features, the pool's prepared positions, the packed head (K5 at
-    pool 7, K6 at pool 14, 81 classes, BN statistics from the seed) and
-    class ids 1..80."""
-    rng = np.random.default_rng(seed)
-    gen = torch.Generator().manual_seed(seed)
-    feats = [torch.from_numpy(rng.standard_normal(
-        (b, 64 >> l, 64 >> l, c)).astype(np.float32)).to(dtype)
-        for l in range(4)]
-    yx1 = rng.uniform(0, 0.7, size=(b * n, 2))
-    rois = np.concatenate([yx1, np.minimum(
-        yx1 + rng.uniform(0.02, 0.6, size=(b * n, 2)), 1.0)], -1)
-    rois[::9] = 0.0
-    prep = roi_align.prepare(torch.from_numpy(rois.astype(np.float32)),
-                             [(f.shape[1], f.shape[2]) for f in feats],
-                             (1024, 1024), 224.0, crop)
-    if crop == 7:
-        params = pt_heads.init_classifier_head(gen, 81, c, 7, 1024)
-    else:
-        params = pt_heads.init_mask_head(gen, 81, c, c)
-    for w in params.values():
-        if "moving_variance" in w:
-            k = w["gamma"].shape[0]
-            w.update(gamma=torch.rand(k, generator=gen) + 0.5,
-                     beta=torch.rand(k, generator=gen) * 0.4 - 0.2,
-                     moving_mean=torch.rand(k, generator=gen) * 0.4 - 0.2,
-                     moving_variance=torch.rand(k, generator=gen) + 0.5)
-    packed = (roi_align_cuda.pack_classifier_head(params, 81, dtype)
-              if crop == 7 else roi_align_cuda.pack_mask_head(params, dtype))
-    ids = torch.from_numpy(rng.integers(1, 81, b * n).astype(np.int32))
-    return feats, prep, n, packed, ids
 
 
 def test_wrappers_take_plain_version_on_cpu():
@@ -252,103 +232,3 @@ def test_block_supported_takes_any_height_and_width(shape, mid, cout, proj,
     if proj:
         blk["ws"] = torch.zeros(shape[-1], cout)
     assert bottleneck_cuda.block_supported(shape, blk) == ok
-
-
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
-    cuda_lib.load()
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-def test_gpu_nms_kernel_matches_plain():
-    dev = _card()
-    boxes, valid = _nms_case(n=6000)
-    for thr, max_out in ((0.7, 1000), (0.3, 100)):
-        want = nms_cuda.nms_keep_plain(boxes, valid, thr, max_out)
-        got = nms_cuda.nms_keep(boxes.to(dev), valid.to(dev), thr, max_out)
-        assert torch.equal(got.cpu(), want)
-
-
-@pytest.mark.gpu
-def test_gpu_roi_align_kernel_matches_plain():
-    dev = _card()
-    for dtype in (torch.float32, torch.bfloat16):
-        feats, ys, xs, level, valid, n = _roi_case(dtype=dtype)
-        args = ([f.to(dev) for f in feats], ys.to(dev), xs.to(dev),
-                level.to(dev), valid.to(dev), n)
-        want = roi_align_cuda.roi_align_plain(*args).float()
-        got = roi_align_cuda.roi_align(*args).float()
-        # same float32 operations in the same order; one output rounding
-        tol = 1e-6 if dtype == torch.float32 else 1e-2
-        torch.testing.assert_close(got, want, rtol=0,
-                                   atol=tol * want.abs().max().item())
-
-
-@pytest.mark.gpu
-def test_gpu_stem_kernel_matches_plain():
-    dev = _card()
-    rng = np.random.default_rng(0)
-    sp = {k: {w: torch.from_numpy(v).to(dev) for w, v in d.items()}
-          for k, d in stem_params(rng).items()}
-    w, bias = stem_cuda.fold_stem_weights(sp["conv1"], sp["bn_conv1"])
-    images = torch.from_numpy(rng.uniform(-124, 132, (2, 128, 128, 3))
-                              .astype(np.float32)).to(dev)
-    want = stem_cuda.stem_plain(images, w, bias).float()
-    got = stem_cuda.stem(images, w, bias).float()
-    # float32 sums in another order, then one bf16 rounding: 1 bf16 ulp
-    torch.testing.assert_close(got, want, rtol=2 ** -7,
-                               atol=1e-3 * want.abs().max().item())
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("stage,cin,mid,cout,hw", [
-    (2, 64, 64, 256, (32, 32)), (2, 64, 64, 256, (20, 37)),
-    (3, 256, 128, 512, (16, 32)), (3, 256, 128, 512, (13, 21)),
-    (2, 64, 64, 192, (9, 17))],
-    ids=["mid64", "mid64-ragged", "mid128", "mid128-ragged", "cout192"])
-def test_gpu_chain_kernel_matches_plain(stage, cin, mid, cout, hw):
-    """Mid widths 64 and 128, a projection then identity blocks, edge tiles
-    the 8 x 16 tile does not divide, and 64-column output chunks."""
-    dev = _card()
-    x, blocks = _chain_case(stage=stage, cin=cin, mid=mid, cout=cout, hw=hw)
-    x = x.to(dev)
-    blocks = [{k: v.to(dev) for k, v in b.items()} for b in blocks]
-    want = bottleneck_cuda.chain_plain(x, blocks).float()
-    got = bottleneck_cuda.fused_bottleneck_chain(x, blocks).float()
-    # bf16 intermediates rounded at the same points, float32 sums in
-    # another order: an ulp that later blocks carry on
-    torch.testing.assert_close(got, want, rtol=0.02,
-                               atol=0.01 * want.abs().max().item())
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("n", [20, 37])
-def test_gpu_classifier_head_kernel_matches_plain(n):
-    """Full widths (C = 256, 12544 -> 1024 -> 1024 -> 512), 2 x n ROIs (not
-    a multiple of the 128-row tile), every ninth ROI invalid."""
-    dev = _card()
-    feats, prep, n, head, _ = _head_case(n=n, dtype=torch.bfloat16)
-    assert not prep[3].all()
-    args = ([f.to(dev) for f in feats], *[t.to(dev) for t in prep], n,
-            {k: v.to(dev) for k, v in head.items()})
-    want = roi_align_cuda.classifier_head_plain(*args)
-    got = roi_align_cuda.roi_classifier_head(*args)
-    # bf16 h1/h2 rounded at the same points after float32 sums in another
-    # order: an ulp of h1 moves the outputs by far less than 2% of the max
-    torch.testing.assert_close(got, want, rtol=0,
-                               atol=0.02 * want.abs().max().item())
-
-
-@pytest.mark.gpu
-def test_gpu_mask_head_kernel_matches_plain():
-    dev = _card()
-    feats, prep, n, mask, ids = _head_case(crop=14, dtype=torch.bfloat16)
-    args = ([f.to(dev) for f in feats], *[t.to(dev) for t in prep], n,
-            {k: v.to(dev) for k, v in mask.items()}, ids.to(dev))
-    want = roi_align_cuda.mask_head_plain(*args)
-    got = roi_align_cuda.roi_mask_head(*args)
-    # four bf16 activation roundings after float32 sums in another order,
-    # through a sigmoid (slope <= 1/4)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-2)
