@@ -14,12 +14,14 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            function, that call's time (`library_ms`, never used by the port;
            for K5 and K6 the unfused route, K2 and then the head, several
            calls); every `ms` is back-to-back calls between CUDA events;
-           every row with `share_of_bound` (bound_ms / ms); K2, K4, K5 and
-           K6 also with L2 cold (`ms_l2_cold`: a 256 MB buffer written
-           before each timed call) and their rate (`tflops`); K1 and K2,
-           shorter than their wrappers' Python, also as 20 calls in one
-           CUDA graph (`ms_graph`); K1, K4, K5, K6 with the device kernels
-           one call launches (torch.profiler)
+           every row with `share_of_bound` (bound_ms / ms); K2-K6 also
+           with L2 cold (`ms_l2_cold`: a 256 MB buffer written before each
+           timed call) and their rate (`tflops`); K1, K2 and K3 also as 20
+           calls in one CUDA graph (`ms_graph`: the kernels without the
+           wrappers' host time); K1, K3-K6 with the device kernels one call
+           launches and their device times (torch.profiler), K5 and K6
+           with their pool pass's time (`pool_pass_ms`); K3 a second time
+           at 804 x 1060, whose pooled grid its tile does not divide
   small    the detector forward on the card against the same forward on the
            CPU (plain path), tiny config in float32
   e2e      `MaskRCNNDetector.detect_images` at R101-FPN @ 1024^2, 81 classes,
@@ -131,7 +133,7 @@ def kernels_per_call(fn, reps: int = 3) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
+        by_name, ms_by_name = {}, {}
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
@@ -140,12 +142,20 @@ def kernels_per_call(fn, reps: int = 3) -> dict:
                 key = re.sub(r"\(anonymous namespace\)::|\(.*|^void ", "",
                              ev.key)[:60]
                 by_name[key] = by_name.get(key, 0) + ev.count / reps
+                ms_by_name[key] = ms_by_name.get(key, 0) + us / reps / 1e3
         if by_name:
             return {"kernel_launches_per_call": sum(by_name.values()),
                     "kernels_per_call": by_name,
+                    "kernel_ms_per_call": ms_by_name,
                     "profiler_attempts": attempt + 1}
     return {"kernel_launches_per_call": None, "kernels_per_call": None,
-            "profiler_attempts": 3}
+            "kernel_ms_per_call": None, "profiler_attempts": 3}
+
+
+def pool_pass_ms(per_call: dict):
+    """K2's pool kernel's device time inside a K5 / K6 call (profiler)."""
+    ms = per_call.get("kernel_ms_per_call") or {}
+    return sum(v for k, v in ms.items() if "roi_align_kernel" in k) or None
 
 
 def cuda_ms_l2_cold(fn, reps: int, warmup: int = 1,
@@ -393,6 +403,7 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
     plain_ms = cuda_ms(lambda: rac.classifier_head_plain(*args), 3)
     library_ms = cuda_ms(lambda: heads.apply_classifier_head(
         params, rac.roi_align(pyramid, *prep, n), nc, dtype=bf16), 20)
+    per_call = kernels_per_call(lambda: rac.roi_classifier_head(*args))
     m = batch * n
     k1, n1 = head["w1"].shape
     n2, n3 = head["w2"].shape[1], head["w3"].shape[1]
@@ -409,7 +420,7 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
         {"ms_l2_cold": ms_cold, **tflops(ms, flops),
          "rois": [batch, n], "widths": [k1, n1, n2, n3],
          "argmax_same": argmax_same, "argmax_tol": 0.995,
-         **kernels_per_call(lambda: rac.roi_classifier_head(*args)),
+         **per_call, "pool_pass_ms": pool_pass_ms(per_call),
          "distinct_cells": cells,
          "library": "K2 pool 7, then models/heads.py (cuBLAS): several "
                     "calls", "plain_max_abs": want.abs().max().item()},
@@ -431,6 +442,7 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
     library_ms = cuda_ms(lambda: heads.apply_mask_head(
         params, rac.roi_align(pyramid, *prep, n), dtype=bf16,
         class_ids=ids), 10)
+    per_call = kernels_per_call(lambda: rac.roi_mask_head(*args))
     m = batch * n
     flops = 2.0 * m * 196 * (4 * 9 * c * c + c * 4 * c)
     cells = distinct_cells(*prep, n, hw)
@@ -443,7 +455,7 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
         "maskrcnn_tpu/ops/roi_align_pallas.py:716", ms, plain_ms, err, 1e-2,
         bound(moved, flops, BF16_FLOPS), library_ms,
         {"ms_l2_cold": ms_cold, **tflops(ms, flops),
-         **kernels_per_call(lambda: rac.roi_mask_head(*args)),
+         **per_call, "pool_pass_ms": pool_pass_ms(per_call),
          "rois": [batch, n], "distinct_cells": cells,
          "library": "K2 pool 14, then models/heads.py (cuDNN convs, "
                     "einsum select): several calls",
@@ -456,37 +468,50 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
 # --------------------------------------------------------------------------
 
 def check_stem(dev, rng, batch, params):
+    """K3 at the main path's 1024^2, then at a size whose pooled grid
+    (201 x 265) the kernel's 12 x 7 tile does not divide."""
     from maskrcnn_tpu_torch.ops import stem_cuda
-    images = torch.from_numpy(rng.uniform(-124, 132, (batch, 1024, 1024, 3))
-                              .astype(np.float32)).to(dev)
     w, bias = stem_cuda.fold_stem_weights(params["conv1"], params["bn_conv1"])
-    want = stem_cuda.stem_plain(images, w, bias).float()
-    got = stem_cuda.stem(images, w, bias).float()
-    err = (got - want).abs()
-    # float32 sums in another order before one bf16 rounding: at most one
-    # bf16 ulp of each value (2^-8 relative), plus slack at zero
-    tol_each = 2.0 ** -8 * want.abs() + 1e-3 * want.abs().max()
-    bad = int((err > tol_each).sum())
-    ms = cuda_ms(lambda: stem_cuda.stem(images, w, bias), 20)
-    plain_ms = cuda_ms(lambda: stem_cuda.stem_plain(images, w, bias), 3)
     wc = w.permute(3, 2, 0, 1).contiguous()
     bc = bias.to(torch.bfloat16)
+    rows = []
+    for name, (h, wd) in (("K3_stem", (1024, 1024)),
+                          ("K3_stem_ragged", (804, 1060))):
+        images = torch.from_numpy(rng.uniform(-124, 132, (batch, h, wd, 3))
+                                  .astype(np.float32)).to(dev)
+        want = stem_cuda.stem_plain(images, w, bias).float()
+        got = stem_cuda.stem(images, w, bias).float()
+        err = (got - want).abs()
+        # float32 sums in another order before one bf16 rounding: at most
+        # one bf16 ulp of each value (2^-8 relative), plus slack at zero
+        tol_each = 2.0 ** -8 * want.abs() + 1e-3 * want.abs().max()
+        bad = int((err > tol_each).sum())
+        call = lambda: stem_cuda.stem(images, w, bias)
+        ms = cuda_ms(call, 20)
+        ms_graph = cuda_ms_graph(call)
+        ms_cold = cuda_ms_l2_cold(call, 10)
+        plain_ms = cuda_ms(lambda: stem_cuda.stem_plain(images, w, bias), 3)
 
-    def library():
-        y = F.conv2d(images.permute(0, 3, 1, 2).to(torch.bfloat16), wc, bc,
-                     stride=2, padding=3)
-        return F.max_pool2d(F.pad(torch.relu(y), (0, 1, 0, 1)), 3, 2)
+        def library():
+            y = F.conv2d(images.permute(0, 3, 1, 2).to(torch.bfloat16), wc,
+                         bc, stride=2, padding=3)
+            return F.max_pool2d(F.pad(torch.relu(y), (0, 1, 0, 1)), 3, 2)
 
-    library_ms = cuda_ms(library, 20)
-    flops = 2.0 * batch * 512 * 512 * 64 * 147
-    return [record("K3_stem", "cuda", "maskrcnn_tpu_torch/csrc/stem.cu",
-                   "maskrcnn_tpu/ops/stem_pallas.py:197", ms, plain_ms,
-                   err.max().item(), "2^-8*|plain| + 1e-3*max|plain| each",
-                   bound(nbytes(images, w, bias) + got.numel() * 2, flops,
-                         BF16_FLOPS), library_ms,
-                   {"shape": list(images.shape), "elements_over_tol": bad,
-                    "plain_max_abs": want.abs().max().item()},
-                   ok=bad == 0)]
+        library_ms = cuda_ms(library, 20)
+        flops = 2.0 * batch * (h // 2) * (wd // 2) * 64 * 147
+        rows.append(record(
+            name, "cuda", "maskrcnn_tpu_torch/csrc/stem.cu",
+            "maskrcnn_tpu/ops/stem_pallas.py:197", ms, plain_ms,
+            err.max().item(), "2^-8*|plain| + 1e-3*max|plain| each",
+            bound(nbytes(images, w, bias) + got.numel() * 2, flops,
+                  BF16_FLOPS), library_ms,
+            {"ms_graph": ms_graph, "ms_l2_cold": ms_cold,
+             **tflops(ms, flops), "shape": list(images.shape),
+             "elements_over_tol": bad, **kernels_per_call(call),
+             "plain_max_abs": want.abs().max().item()},
+            ok=bad == 0))
+        del images, want, got, err, tol_each
+    return rows
 
 
 def chain_flops(x_shape, blocks) -> float:

@@ -1,14 +1,13 @@
-// Shared by K6 (roi_mask_head.cu), K4 (bottleneck.cu) and K5
-// (roi_classifier_head.cu): the pool's bilinear sample with K2's arithmetic
-// (roi_align.cu), the warp-level bf16 tensor-core product, and the
-// shared-memory loads that feed it (ldmatrix, cp.async).
+// Shared by K3 (stem.cu), K4 (bottleneck.cu), K5 (roi_classifier_head.cu)
+// and K6 (roi_mask_head.cu): the warp-level bf16 tensor-core product and
+// the shared-memory loads that feed it (ldmatrix, cp.async).
 //
 // The product is the warp-level mma.sync m16n8k16 (bf16 in, float32
 // accumulate) with its fragments loaded by hand, not through WMMA: the
 // register layout is then known (PTX ISA, "Matrix Fragments for
-// mma.m16n8k16"), so a kernel can gather A rows from anywhere (the 3x3
-// taps of K6 read shifted rows and zero the SAME border row by row) and
-// apply an epilogue to each element where it sits. For lane = 4 * g + t:
+// mma.m16n8k16"), so a kernel can gather A rows from anywhere (K4's 3x3
+// taps read shifted rows, K3 its conv positions' rows of the input patch)
+// and apply an epilogue to each element where it sits. For lane = 4 * g + t:
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
 //                         a2 = A[g][2t+8..2t+9], a3 = A[g+8][2t+8..2t+9]
 //   B (16x8), read from its transpose Bt (N x K, K contiguous):
@@ -32,77 +31,13 @@ namespace mrt {
 
 typedef __nv_bfloat16 bf16;
 
-struct Levels {
-  const bf16* f[4];
-  int h[4];
-  int w[4];
-};
-
-__device__ __forceinline__ float lerp_rn(float a, float b, float w) {
-  // a * (1 - w) + b * w, each operation rounded on its own (as K2).
-  return __fadd_rn(__fmul_rn(a, __fsub_rn(1.0f, w)), __fmul_rn(b, w));
-}
-
-// Where one bilinear sample reads on its level: two row pointers, two
-// column offsets (elements) and the weights; r0 == nullptr means the
-// sample is 0 (out of range). Same clamps and weights as K2.
-struct Sample {
-  const bf16* r0;
-  const bf16* r1;
-  int x0, x1;
-  float wx, wy;
-};
-
-__device__ __forceinline__ Sample locate(const Levels& lv, int l, int img,
-                                         int c, float y, float x) {
-  Sample s;
-  s.r0 = nullptr;
-  const int fh = lv.h[l], fw = lv.w[l];
-  const float fh1 = (float)(fh - 1), fw1 = (float)(fw - 1);
-  if (!(y >= 0.0f && y <= fh1 && x >= 0.0f && x <= fw1)) return s;
-  const float y0 = floorf(y), x0 = floorf(x);
-  s.wy = __fsub_rn(y, y0);
-  s.wx = __fsub_rn(x, x0);
-  const int y0i = (int)fminf(fmaxf(y0, 0.0f), fh1);
-  const int y1i = min(y0i + 1, fh - 1);
-  const int x0i = (int)fminf(fmaxf(x0, 0.0f), fw1);
-  const int x1i = min(x0i + 1, fw - 1);
-  if (x1i <= x0i) s.wx = 0.0f;
-  const bf16* f = lv.f[l] + (size_t)img * fh * fw * c;
-  s.r0 = f + (size_t)y0i * fw * c;
-  s.r1 = f + (size_t)y1i * fw * c;
-  s.x0 = x0i * c;
-  s.x1 = x1i * c;
-  return s;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Channels ch and ch + 1 of a sample: blended in float32 (x first, then
-// y), rounded to bf16, packed for a 32-bit store.
-__device__ __forceinline__ uint32_t sample_pair(const Sample& s, int ch) {
-  if (s.r0 == nullptr) return 0u;
-  typedef __nv_bfloat162 V;
-  const float2 v00 = __bfloat1622float2(*reinterpret_cast<const V*>(s.r0 + s.x0 + ch));
-  const float2 v01 = __bfloat1622float2(*reinterpret_cast<const V*>(s.r0 + s.x1 + ch));
-  const float2 v10 = __bfloat1622float2(*reinterpret_cast<const V*>(s.r1 + s.x0 + ch));
-  const float2 v11 = __bfloat1622float2(*reinterpret_cast<const V*>(s.r1 + s.x1 + ch));
-  const float a = lerp_rn(lerp_rn(v00.x, v01.x, s.wx),
-                          lerp_rn(v10.x, v11.x, s.wx), s.wy);
-  const float b = lerp_rn(lerp_rn(v00.y, v01.y, s.wx),
-                          lerp_rn(v10.y, v11.y, s.wx), s.wy);
-  return pack_bf16(a, b);
-}
-
 __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
 // d += A (16x16 bf16) * B (16x8 bf16), float32 accumulation.

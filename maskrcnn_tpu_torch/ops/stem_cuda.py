@@ -50,6 +50,10 @@ def stem_cuda(images: torch.Tensor, w: torch.Tensor,
     cuda_lib.require(images, "images", torch.float32, (b, h, wd, 3))
     cuda_lib.require(w, "w", torch.bfloat16, (7, 7, 3, 64))
     cuda_lib.require(bias, "bias", torch.float32, (64,))
+    # the kernel reads the image and weights in 16-byte vectors: a view
+    # that starts off a 16-byte boundary is copied to one that does not
+    images, w, bias = [t if t.data_ptr() % 16 == 0 else t.clone()
+                       for t in (images, w, bias)]
     lib = cuda_lib.load()
     out = torch.empty((b, h // 4, wd // 4, 64), dtype=torch.bfloat16,
                       device=images.device)

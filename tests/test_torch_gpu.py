@@ -214,6 +214,76 @@ def test_gpu_stem_kernel_matches_plain():
                                atol=1e-3 * want.abs().max().item())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 96, 160), (3, 128, 128),
+                                   (1, 1024, 1024)],
+                         ids=["1x96x160", "3x128x128", "1x1024x1024"])
+def test_gpu_stem_kernel_shapes(shape):
+    """Pooled grids the kernel's 12 x 7 tile does not divide (24 x 40 in
+    width, 32 x 32 and 256 x 256 in both directions), several images, and
+    the main path's 1024^2."""
+    dev = _card()
+    rng = np.random.default_rng(sum(shape))
+    sp = {k: {w: torch.from_numpy(v).to(dev) for w, v in d.items()}
+          for k, d in stem_params(rng).items()}
+    w, bias = stem_cuda.fold_stem_weights(sp["conv1"], sp["bn_conv1"])
+    images = torch.from_numpy(rng.uniform(-124, 132, (*shape, 3))
+                              .astype(np.float32)).to(dev)
+    want = stem_cuda.stem_plain(images, w, bias).float()
+    got = stem_cuda.stem(images, w, bias).float()
+    # float32 sums in another order, then one bf16 rounding: 1 bf16 ulp
+    torch.testing.assert_close(got, want, rtol=2 ** -7,
+                               atol=1e-3 * want.abs().max().item())
+
+
+def _roi_edge_case(b, n, c, crop, dtype, seed=0):
+    """Pool inputs at 1024^2 level choice: ROIs touching every image edge
+    first in each image, every ninth ROI invalid, and the last image's ROIs
+    all invalid."""
+    rng = np.random.default_rng(seed)
+    feats = [torch.from_numpy(rng.standard_normal(
+        (b, 64 >> l, 64 >> l, c)).astype(np.float32)).to(dtype)
+        for l in range(4)]
+    yx1 = rng.uniform(0, 0.7, size=(b * n, 2))
+    rois = np.concatenate([yx1, np.minimum(
+        yx1 + rng.uniform(0.02, 0.6, size=(b * n, 2)), 1.0)], -1)
+    for i in range(b):
+        k = min(n, len(EDGE_ROIS))
+        rois[i * n:i * n + k] = EDGE_ROIS[:k]
+    rois[8::9] = 0.0
+    rois[(b - 1) * n:] = 0.0
+    ys, xs, level, valid = roi_align.prepare(
+        torch.from_numpy(rois.astype(np.float32)),
+        [(f.shape[1], f.shape[2]) for f in feats], (1024, 1024), 224.0, crop)
+    assert valid[:n].any() and not valid[(b - 1) * n:].any()
+    return feats, ys, xs, level, valid, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("c,crop,b,n", [(256, 7, 2, 37), (256, 7, 2, 300),
+                                        (256, 14, 2, 37), (2, 7, 3, 20),
+                                        (2, 14, 2, 20)],
+                         ids=["c256-pool7", "c256-pool7-m600",
+                              "c256-pool14", "c2-pool7", "c2-pool14"])
+def test_gpu_roi_align_kernel_equals_plain(dtype, c, crop, b, n):
+    """The kernel does the plain version's float32 operations in its order
+    and rounds once: its output equals the plain version's. C = 256 takes
+    16-byte chunks, C = 2 channel pairs; 2 x 300 ROIs at pool 7 split each
+    ROI's 7 rows over blocks of 4 and 3 on a 132-SM card."""
+    dev = _card()
+    feats, ys, xs, level, valid, n = _roi_edge_case(b, n, c, crop, dtype)
+    args = ([f.to(dev) for f in feats], ys.to(dev), xs.to(dev),
+            level.to(dev), valid.to(dev), n)
+    want = roi_align_cuda.roi_align_plain(*args)
+    got = roi_align_cuda.roi_align(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b * n, crop, crop, c)
+    assert torch.equal(got, want)
+    assert not got[(b - 1) * n:].any()
+
+
 def _chain_case(seed=0, stage=2, cin=64, mid=64, cout=256, hw=(32, 32)):
     """A projection block, then two identity blocks."""
     rng = np.random.default_rng(seed)
