@@ -36,8 +36,26 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            in micro-batches of --batch (the second main path, counted
            the same way: K5 and K6 once per forward, K2 never), then one
            profiled forward
+  serve    `pipeline/serve.make_server` (max batch --batch, 20 ms window,
+           uint8 wire) on a thread, the default (unfused) config at score
+           threshold 0: 8 concurrent POST /detect from 8 threads, twice,
+           JPEG and PNG bodies of mixed sizes with one grayscale and one
+           RGBA image, then one malformed body (must be 500, every other
+           reply 200); boxes inside their images, every mask RLE of its
+           image's size, a batch of more than one request, /healthz
+           counting the frames, K3 once and K1 twice per forward;
+           requests/s, latency p50/p95, peak memory
+  cli      `maskrcnn_tpu_torch.cli.main` in-process over a temporary COCO
+           workspace (4 JPEGs with polygon annotations, random weights
+           from the seed as .npz): `evaluate --uint8` (both 12-number
+           summaries, results.json and results.pb, K1-K4), `demo` (a PNG
+           of the image's size), `stream --frames-dir --device-paste`
+           with both fused heads (K5 and K6 once per forward)
+  bench    `maskrcnn_tpu_torch.tools.bench` at --batch, 10 iterations,
+           with `--fuse none` and `--fuse both`; its JSON lines
 
-then a `kernels` line, the nvidia-smi line, and last
+then a `kernels` line (each kernel's launches on the e2e or stream path,
+and on every path in `launches_by_path`), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -810,6 +828,366 @@ def stream(dev, seed, batch, frames=16):
     return launches
 
 
+# --------------------------------------------------------------------------
+# serving, the CLI and the bench script on the card
+# --------------------------------------------------------------------------
+
+def synthetic_photo(rng, shape) -> np.ndarray:
+    """A uint8 image of the given (H, W[, C]) shape: gradients, a few
+    rectangles and noise, so JPEG and the detector see some structure."""
+    h, w = shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([xx * 255 / w, yy * 255 / h,
+                    (xx + yy) * 127 / (h + w)], -1)
+    for _ in range(6):
+        y0, x0 = rng.integers(0, h // 2), rng.integers(0, w // 2)
+        img[y0:y0 + rng.integers(h // 8, h // 2),
+            x0:x0 + rng.integers(w // 8, w // 2)] = rng.uniform(0, 255, 3)
+    img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.uint8)
+    if len(shape) == 2:
+        return img.mean(-1).astype(np.uint8)
+    if shape[2] == 4:
+        return np.concatenate([img, np.full((h, w, 1), 200, np.uint8)], -1)
+    return img
+
+
+def encode_image(img: np.ndarray, fmt: str) -> bytes:
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format=fmt)
+    return buf.getvalue()
+
+
+def describe(cfg) -> str:
+    return (f"{cfg.architecture} {cfg.image_height}x{cfg.image_width}x3, "
+            f"{cfg.num_classes} classes, {cfg.compute_dtype}")
+
+
+def random_detector(dev, seed, cfg):
+    """A detector of `cfg` on `dev`, random weights from the seed with BN
+    statistics drawn from it."""
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
+    gen = torch.Generator().manual_seed(seed)
+    params = M.init_mask_rcnn(gen, cfg)
+    live_bn(params, gen)
+    return MaskRCNNDetector(cfg, params, device=dev)
+
+
+# the request bodies: mixed sizes, JPEG and PNG, one grayscale, one RGBA
+SERVE_BODIES = (((480, 640, 3), "JPEG"), ((640, 480, 3), "PNG"),
+                ((768, 1024, 3), "JPEG"), ((300, 500, 3), "PNG"),
+                ((480, 640), "JPEG"), ((640, 480, 4), "PNG"),
+                ((1024, 768, 3), "JPEG"), ((500, 300, 3), "JPEG"))
+SERVE_KERNELS = ("nms", "roi_align", "stem", "bottleneck")
+
+
+def serve(dev, seed, batch, base, rounds=2):
+    """`pipeline/serve.make_server` on a thread, `base` config (the default
+    one: unfused heads) at score threshold 0: 8 concurrent POST /detect
+    from 8 threads, `rounds` times over, then one malformed body."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    from maskrcnn_tpu_torch.evalkit import mask_rle
+    from maskrcnn_tpu_torch.ops import cuda_lib
+    from maskrcnn_tpu_torch.pipeline.serve import make_server
+    det = random_detector(dev, seed,
+                          base.replace(detection_score_threshold=0.0))
+    rng = np.random.default_rng(seed + 2)
+    images = [synthetic_photo(rng, s) for s, _ in SERVE_BODIES]
+    bodies = [encode_image(im, fmt) for im, (_, fmt) in zip(images,
+                                                             SERVE_BODIES)]
+    det.detect_images(images[:batch], paste_masks="rle", batch_size=batch,
+                      uint8_wire=True)                         # warm-up
+    server, worker = make_server(det, port=0, max_batch=batch,
+                                 window_ms=20.0, uint8_wire=True)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+
+    def post(data):
+        req = urllib.request.Request(f"http://{host}:{port}/detect",
+                                     data=data, method="POST")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                code, body = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            code, body = e.code, json.loads(e.read())
+        return code, body, (time.perf_counter() - t0) * 1e3
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        replies = []
+        for _ in range(rounds):
+            with ThreadPoolExecutor(len(bodies)) as pool:
+                replies += list(pool.map(post, bodies))
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_lib.launches)                     # main path
+        peak = torch.cuda.max_memory_allocated()
+        bad_code, bad_body, _ = post(b"this is not an image")
+        with urllib.request.urlopen(f"http://{host}:{port}/healthz",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        server.shutdown()
+        worker.stop()
+        server.server_close()
+        thread.join(timeout=30)
+
+    errors, n_dets = [], []
+    for i, (code, body, _) in enumerate(replies):
+        shape = SERVE_BODIES[i % len(SERVE_BODIES)][0]
+        h, w = shape[:2]
+        if code != 200:
+            errors.append(f"request {i} {shape}: {code} {body}")
+            continue
+        n_dets.append(len(body["detections"]))
+        for d in body["detections"]:
+            y1, x1, y2, x2 = d["box_yxyx"]
+            if not (0 <= y1 <= y2 <= h and 0 <= x1 <= x2 <= w):
+                errors.append(f"request {i}: box {d['box_yxyx']} outside "
+                              f"{h}x{w}")
+            rle = d["mask_rle"]
+            m = mask_rle.decode(mask_rle.from_coco_counts(
+                rle["counts"], *rle["size"]))
+            if m.shape != (h, w):
+                errors.append(f"request {i}: mask {m.shape} for {h}x{w}")
+    forwards = worker.batches
+    lat = np.asarray([ms for _, _, ms in replies])
+    emit({"phase": "serve", "config": describe(det.config)
+          + ", unfused heads, score threshold 0, uint8_wire",
+          "requests": len(replies), "clients": len(bodies),
+          "max_batch": batch, "window_ms": 20.0, "wall_s": wall,
+          "requests_per_s": len(replies) / wall,
+          "latency_ms_p50": float(np.percentile(lat, 50)),
+          "latency_ms_p95": float(np.percentile(lat, 95)),
+          "server_latency_ms_p50": float(np.median(
+              [b["latency_ms"] for c, b, _ in replies if c == 200] or [0])),
+          "batch_size_counts": worker.batch_size_counts,
+          "forwards": forwards, "launches": launches,
+          "detections_per_reply": n_dets, "healthz": health,
+          "malformed": [bad_code, bad_body],
+          "device": str(det.device),
+          "max_memory_allocated_bytes": peak})
+    if errors:
+        raise AssertionError(f"serve: {errors[:5]}")
+    if bad_code != 500:
+        raise AssertionError(f"malformed request answered {bad_code}")
+    if det.device.type != "cuda":
+        raise AssertionError(f"served on {det.device}")
+    if not any(n > 1 for n in worker.batch_size_counts):
+        raise AssertionError("no batch of more than one request formed: "
+                             f"{worker.batch_size_counts}")
+    if health["frames"] != len(replies) or worker.frames != len(replies):
+        raise AssertionError(f"healthz counted {health['frames']} frames "
+                             f"for {len(replies)} requests")
+    if launches["stem"] != forwards or launches["nms"] != 2 * forwards:
+        raise AssertionError(f"{forwards} forwards launched K3 "
+                             f"{launches['stem']} and K1 {launches['nms']} "
+                             "times (expected once and twice per forward)")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"serve path never launched {missing}")
+    return launches
+
+
+def ap_table(text: str) -> dict:
+    """The 12-number summaries the evaluate CLI printed, by IoU type."""
+    out = {}
+    for m in re.finditer(r"\[(bbox|segm)\] (.+?)\s+= (-?[0-9.]+)", text):
+        out.setdefault(m.group(1), []).append(float(m.group(3)))
+    return out
+
+
+def cli(dev, seed, batch, base):
+    """`maskrcnn_tpu_torch.cli.main` in-process over a temporary COCO
+    workspace, `base` config at score threshold 0: evaluate (K1-K4), demo,
+    and stream with both fused heads (K5 and K6 once per forward)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    from PIL import Image
+    from maskrcnn_tpu_torch.cli.main import main as cli_main
+    from maskrcnn_tpu_torch.core.coco_names import COCO_CATEGORY_IDS, \
+        COCO_CLASS_NAMES
+    from maskrcnn_tpu_torch.evalkit import mask_rle
+    from maskrcnn_tpu_torch.io.weights import save_npz_checkpoint
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.ops import cuda_lib
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        images_dir = os.path.join(root, "coco", "val2017")
+        frames_dir = os.path.join(root, "frames")
+        os.makedirs(images_dir)
+        os.makedirs(frames_dir)
+        rng = np.random.default_rng(seed + 3)
+        shapes = ((480, 640, 3), (640, 480, 3), (600, 800, 3),
+                  (427, 640, 3))
+        images, anns = [], []
+        for i, shape in enumerate(shapes, 1):
+            img = synthetic_photo(rng, shape)
+            h, w = shape[:2]
+            name = f"{i:012d}.jpg"
+            Image.fromarray(img).save(os.path.join(images_dir, name))
+            images.append({"id": i, "width": w, "height": h,
+                           "file_name": name})
+            x, y = w * 0.2, h * 0.25
+            bw, bh = w * 0.4, h * 0.5
+            anns.append({"id": i, "image_id": i,
+                         "category_id": int(COCO_CATEGORY_IDS[i]),
+                         "bbox": [x, y, bw, bh], "area": bw * bh,
+                         "iscrowd": 0,
+                         "segmentation": [[x, y, x + bw, y, x + bw / 2,
+                                           y + bh]]})
+        cats = [{"id": int(c), "name": n} for c, n in
+                zip(COCO_CATEGORY_IDS[1:], COCO_CLASS_NAMES[1:])]
+        with open(os.path.join(root, "coco", "instances_val2017.json"),
+                  "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": cats}, f)
+        frame = synthetic_photo(rng, (768, 1024, 3))
+        for i in range(8):
+            Image.fromarray(np.roll(frame, 7 * i, axis=1)).save(
+                os.path.join(frames_dir, f"{i:03d}.jpg"))
+        cfg = base.replace(detection_score_threshold=0.0)
+        fused = cfg.replace(fuse_classifier_head=True, fuse_mask_head=True)
+        cfg_path = os.path.join(root, "config.json")
+        fused_path = os.path.join(root, "config_fused.json")
+        cfg.to_json(cfg_path)
+        fused.to_json(fused_path)
+        gen = torch.Generator().manual_seed(seed)
+        params = M.init_mask_rcnn(gen, cfg)
+        live_bn(params, gen)
+        weights = os.path.join(root, "checkpoint.npz")
+        save_npz_checkpoint(params, weights)
+        del params
+        # on the card the CLI's default device (no --device) is the card
+        on = [] if dev.type == "cuda" else ["--device", str(dev)]
+        model = ["--config", cfg_path, "--weights", weights] + on
+        results = os.path.join(root, "results")
+
+        def run(argv):
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(cuda_lib.launches)
+            if rc != 0:
+                raise AssertionError(f"cli {argv[0]} exited {rc}:\n"
+                                     f"{buf.getvalue()[-2000:]}")
+            return buf.getvalue(), launches, seconds
+
+        out, l_eval, s_eval = run(
+            ["evaluate", "smoke", "coco", "--limit", "4", "--batch",
+             str(batch), "--uint8", "--annotations_dir",
+             os.path.join(root, "coco"), "--images_dir", images_dir,
+             "--results_dir", results] + model)
+        stats = ap_table(out)
+        with open(os.path.join(results, "results.json")) as f:
+            rows = json.load(f)
+        sizes = {im["id"]: [im["height"], im["width"]] for im in images}
+        bad_rows = [r["image_id"] for r in rows
+                    if r["segmentation"]["size"] != sizes[r["image_id"]]
+                    or mask_rle.decode(mask_rle.from_coco_segmentation(
+                        r["segmentation"], *sizes[r["image_id"]])).shape
+                    != tuple(sizes[r["image_id"]])]
+        pb_bytes = os.path.getsize(os.path.join(results, "results.pb"))
+
+        demo_png = os.path.join(root, "demo.png")
+        out_demo, l_demo, s_demo = run(
+            ["demo", "smoke", os.path.join(images_dir, images[0]["file_name"]),
+             "-o", demo_png] + model)
+        with Image.open(demo_png) as im:
+            demo_size = [im.size[1], im.size[0]]
+
+        stream_json = os.path.join(root, "stream.json")
+        out_stream, l_stream, s_stream = run(
+            ["stream", "smoke", "--frames-dir", frames_dir, "--micro-batch",
+             str(batch), "--device-paste", "--json", stream_json,
+             "--config", fused_path, "--weights", weights] + on)
+        with open(stream_json) as f:
+            stream_stats = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "cli", "config": describe(cfg)
+          + ", score threshold 0; stream with both fused heads",
+          "evaluate": {"seconds": s_eval, "launches": l_eval,
+                       "rows": len(rows), "results_pb_bytes": pb_bytes,
+                       "stats": stats},
+          "demo": {"seconds": s_demo, "launches": l_demo,
+                   "png_hw": demo_size, "stdout": out_demo.splitlines()[:1]},
+          "stream": {"seconds": s_stream, "launches": l_stream,
+                     "stats": stream_stats}})
+    problems = []
+    if [len(stats.get(t, [])) for t in ("bbox", "segm")] != [12, 12]:
+        problems.append(f"evaluate printed {stats}")
+    if len(rows) != 4 * cfg.max_detections or bad_rows:
+        problems.append(f"{len(rows)} rows, segmentation size wrong for "
+                        f"{bad_rows[:5]}")
+    if demo_size != sizes[1]:
+        problems.append(f"demo png {demo_size} for {sizes[1]}")
+    missing = [k for k in SERVE_KERNELS if l_eval[k] == 0]
+    if missing:
+        problems.append(f"evaluate never launched {missing}")
+    if not (l_stream["roi_classifier_head"] == l_stream["roi_mask_head"]
+            == l_stream["stem"] > 0) or l_stream["roi_align"]:
+        problems.append(f"stream launches {l_stream}: K5 and K6 not once "
+                        "per forward")
+    if stream_stats["frames"] != 8:
+        problems.append(f"stream ran {stream_stats['frames']} frames")
+    if problems:
+        raise AssertionError(f"cli: {problems}")
+    return {"cli_evaluate": l_eval, "cli_stream": l_stream}
+
+
+def bench(batch):
+    """`maskrcnn_tpu_torch.tools.bench` with the unfused and the fused
+    heads; its JSON lines are printed as they are."""
+    import contextlib
+    import io
+    from maskrcnn_tpu_torch.ops import cuda_lib
+    from maskrcnn_tpu_torch.tools import bench as bench_tool
+    launches = {}
+    for fuse, want in (("none", ("roi_align",)),
+                       ("both", ("roi_classifier_head", "roi_mask_head"))):
+        buf = io.StringIO()
+        cuda_lib.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_tool.main(["--batch", str(batch), "--iters", "10",
+                                  "--warmup", "3", "--fuse", fuse])
+        launches[f"bench_{fuse}"] = dict(cuda_lib.launches)
+        if rc != 0:
+            raise AssertionError(f"bench --fuse {fuse} exited {rc}")
+        line = buf.getvalue().strip().splitlines()[-1]
+        print(line, flush=True)
+        result = json.loads(line)
+        emit({"phase": f"bench_{fuse}", "launches": launches[f"bench_{fuse}"],
+              "result": result})
+        if not (result["value"] > 0 and np.isfinite(result["p99_ms"])):
+            raise AssertionError(f"bench --fuse {fuse}: {result}")
+        missing = [k for k in want + ("stem", "nms", "bottleneck")
+                   if launches[f"bench_{fuse}"][k] == 0]
+        if missing:
+            raise AssertionError(f"bench --fuse {fuse} never launched "
+                                 f"{missing}")
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -859,6 +1237,14 @@ def main() -> int:
     launches = e2e(dev, args.seed, args.batch)
     torch.cuda.empty_cache()
     launches_stream = stream(dev, args.seed, args.batch)
+    torch.cuda.empty_cache()
+    by_path = {"e2e": launches, "stream": launches_stream}
+    full = MaskRCNNConfig()            # R101-FPN @ 1024^2, 81 classes, bf16
+    by_path["serve"] = serve(dev, args.seed, args.batch, full)
+    torch.cuda.empty_cache()
+    by_path.update(cli(dev, args.seed, args.batch, full))
+    torch.cuda.empty_cache()
+    by_path.update(bench(args.batch))
 
     family = {"K1": "nms", "K2": "roi_align", "K3": "stem", "K4": "bottleneck",
               "K5": "roi_classifier_head", "K6": "roi_mask_head"}
@@ -867,6 +1253,7 @@ def main() -> int:
         row["launches"] = (launches_stream if key in ("roi_classifier_head",
                                                       "roi_mask_head")
                            else launches)[key]
+        row["launches_by_path"] = {p: n[key] for p, n in by_path.items()}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,8 @@
 
 Ordering contract (must match the RPN output layout): levels P2..P6 outer,
 then row-major over (y, x) feature positions, then the aspect ratios.
-`generate_anchors` and `anchor_spec` are numpy, as in the JAX package;
+`generate_anchors`, `anchor_spec` and the `anchors.bin` reader and writer
+are numpy, as in the JAX package;
 `anchors_at` computes the anchors of given flat indices in torch.
 """
 
@@ -45,6 +46,14 @@ def norm_boxes(boxes: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
     return (boxes - shift) / scale
 
 
+def denorm_boxes(boxes: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
+    """Inverse of `norm_boxes` (back to pixel coordinates)."""
+    h, w = shape
+    scale = np.array([h - 1, w - 1, h - 1, w - 1], dtype=np.float64)
+    shift = np.array([0.0, 0.0, 1.0, 1.0], dtype=np.float64)
+    return boxes * scale + shift
+
+
 def generate_anchors(config: MaskRCNNConfig) -> np.ndarray:
     """Normalized float32 anchors (N, 4) over all levels."""
     ratios = np.asarray(config.anchor_ratios, dtype=np.float64)
@@ -56,6 +65,25 @@ def generate_anchors(config: MaskRCNNConfig) -> np.ndarray:
             config.backbone_strides)], axis=0)
     return norm_boxes(
         pix, (config.image_height, config.image_width)).astype(np.float32)
+
+
+def save_anchors_bin(anchors: np.ndarray, path: str) -> None:
+    """Raw little-endian float32 dump (`anchors.bin`, the JAX package's and
+    the reference's artifact format)."""
+    np.ascontiguousarray(anchors, dtype="<f4").tofile(path)
+
+
+def load_anchors_bin(path: str, expect_count: int | None = None
+                     ) -> np.ndarray:
+    data = np.fromfile(path, dtype="<f4")
+    if data.size % 4:
+        raise ValueError(f"{path}: size {data.size} not divisible by 4")
+    anchors = data.reshape(-1, 4)
+    if expect_count is not None and anchors.shape[0] != expect_count:
+        raise ValueError(
+            f"{path}: expected {expect_count} anchors, found "
+            f"{anchors.shape[0]}")
+    return anchors
 
 
 def anchor_spec(config: MaskRCNNConfig):

@@ -1,6 +1,7 @@
 """User-facing detector: params on the card -> forward -> unmold on the host.
-Port of `maskrcnn_tpu/pipeline/detector.py` (single device; boolean masks
-pasted on the host with PIL's bilinear resample, or on the device by
+Port of `maskrcnn_tpu/pipeline/detector.py` (single device; masks pasted
+on the host with PIL's bilinear resample, as full boolean canvases or as
+COCO RLE of the box region only, or on the device by
 `run_batch(..., paste_size=S)`).
 
     det = MaskRCNNDetector.from_checkpoint(MaskRCNNConfig(), "ckpt.npz")
@@ -16,21 +17,25 @@ import numpy as np
 import torch
 
 from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
+from maskrcnn_tpu_torch.evalkit import mask_rle
 from maskrcnn_tpu_torch.models.mask_rcnn import (forward, init_mask_rcnn,
                                                  params_to, resolve_device)
+from maskrcnn_tpu_torch.pipeline.loader import letterbox_rgb
 from maskrcnn_tpu_torch.pipeline.preprocess import (LetterboxWindow,
-                                                    letterbox_numpy,
                                                     quantize_canvas_u8)
 
 
 @dataclasses.dataclass
 class Detection:
     """One decoded instance: pixel box in the ORIGINAL image frame, class
-    id, score, and optionally a full-size boolean mask."""
+    id, score, and optionally a full-size boolean mask or its COCO RLE."""
     box: tuple[float, float, float, float]  # (y1, x1, y2, x2) pixels
     class_id: int
     score: float
     mask: np.ndarray | None = None  # (orig_h, orig_w) bool, if pasted
+    #: COCO RLE dict {"size": [h, w], "counts": str} when unmolded with
+    #: paste_masks="rle": O(box area) per detection instead of a canvas.
+    rle: dict | None = None
 
 
 class MaskRCNNDetector:
@@ -51,13 +56,15 @@ class MaskRCNNDetector:
     @classmethod
     def from_checkpoint(cls, config: MaskRCNNConfig, path: str, device=None):
         """A `.npz` checkpoint (`<layer>/<weight>` keys, the JAX package's
-        format); every model layer must be present."""
-        from maskrcnn_tpu_torch.io.weights import (load_npz_checkpoint,
+        format) or, for any other name, Matterport `.h5` weights (needs
+        h5py); every model layer must be present."""
+        from maskrcnn_tpu_torch.io.weights import (load_h5_weights,
+                                                   load_npz_checkpoint,
                                                    merge_pretrained)
-        if not path.endswith(".npz"):
-            raise ValueError(f"{path}: only .npz checkpoints are supported")
         init = init_mask_rcnn(torch.Generator().manual_seed(0), config)
-        params, _, _ = merge_pretrained(init, load_npz_checkpoint(path))
+        loaded = (load_npz_checkpoint(path) if path.endswith(".npz")
+                  else load_h5_weights(path))
+        params, _, _ = merge_pretrained(init, loaded)
         return cls(config, params, device=device)
 
     # --- device step -------------------------------------------------------
@@ -75,20 +82,22 @@ class MaskRCNNDetector:
     # --- host decode -------------------------------------------------------
 
     def detect_images(self, images: Sequence[np.ndarray],
-                      paste_masks: bool = True,
+                      paste_masks: bool | str = True,
                       batch_size: int | None = None,
                       uint8_wire: bool = False) -> list[list[Detection]]:
-        """Arbitrary-size RGB images -> per-image decoded detections.
+        """Arbitrary-size uint8 images, (H, W), (H, W, 1), RGB or RGBA ->
+        per-image decoded detections.
 
-        `paste_masks`: True -> full-canvas boolean masks; False -> boxes
-        only. `batch_size` pads the last chunk to a full batch (None = one
-        batch of len(images)). `uint8_wire`: see `detect_canvases`."""
+        `paste_masks`: True -> full-canvas boolean masks; "rle" -> COCO RLE
+        dicts only, O(box area) per detection (evaluate, serve); False ->
+        boxes only. `batch_size` pads the last chunk to a full batch (None
+        = one batch of len(images)). `uint8_wire`: see `detect_canvases`."""
         if not images:
             return []
         size = self.config.image_height
         canvases, windows = [], []
         for img in images:
-            canvas, win = letterbox_numpy(img, size)
+            canvas, win = letterbox_rgb(img, size)
             canvases.append(canvas)
             windows.append(win)
         return self.detect_canvases(canvases, windows,
@@ -98,7 +107,7 @@ class MaskRCNNDetector:
 
     def detect_canvases(self, canvases: Sequence[np.ndarray],
                         windows: Sequence[LetterboxWindow],
-                        paste_masks: bool = True,
+                        paste_masks: bool | str = True,
                         batch_size: int | None = None,
                         uint8_wire: bool = False) -> list[list[Detection]]:
         """Letterboxed (S, S, 3) float32 canvases and their windows ->
@@ -130,7 +139,7 @@ class MaskRCNNDetector:
 
     def unmold(self, detections: np.ndarray, masks: np.ndarray,
                valid: np.ndarray, win: LetterboxWindow,
-               paste_masks: bool = True) -> list[Detection]:
+               paste_masks: bool | str = True) -> list[Detection]:
         """Normalized canvas coordinates -> original image pixels (the
         Matterport denorm convention, then the letterbox inverse)."""
         s = self.config.image_height - 1
@@ -149,14 +158,20 @@ class MaskRCNNDetector:
                                 win.orig_width))
             ox2 = float(np.clip((cx2 - win.x1) / win.scale, 0,
                                 win.orig_width))
-            full = None
-            if paste_masks:
-                full = paste_mask(mask, (oy1, ox1, oy2, ox2),
-                                  (win.orig_height, win.orig_width),
-                                  self.mask_threshold)
-            results.append(Detection(box=(oy1, ox1, oy2, ox2),
-                                     class_id=int(class_id),
-                                     score=float(score), mask=full))
+            box = (oy1, ox1, oy2, ox2)
+            shape = (win.orig_height, win.orig_width)
+            full = rle = None
+            if paste_masks == "rle":
+                region, ry, rx = paste_mask_region(mask, box, shape,
+                                                   self.mask_threshold)
+                r = mask_rle.encode_region(region, ry, rx, *shape)
+                rle = {"size": [shape[0], shape[1]],
+                       "counts": mask_rle.to_coco_counts(r)}
+            elif paste_masks:
+                full = paste_mask(mask, box, shape, self.mask_threshold)
+            results.append(Detection(box=box, class_id=int(class_id),
+                                     score=float(score), mask=full,
+                                     rle=rle))
         return results
 
 

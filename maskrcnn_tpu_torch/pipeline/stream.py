@@ -6,6 +6,7 @@ then a few blocking probes measure the latency one synchronous caller sees.
 
     stats = run_stream(detector, synthetic_frames(64, 1024), micro_batch=2,
                        paste_size=1024)
+    stats = run_stream(detector, frames_from_dir("clip/", 1024))
 """
 
 from __future__ import annotations
@@ -132,3 +133,18 @@ def synthetic_frames(n: int, size: int, seed: int = 0
     base = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
     for i in range(n):
         yield np.roll(base, shift=7 * i, axis=1)
+
+
+def frames_from_dir(path: str, size: int) -> Iterator[np.ndarray]:
+    """Letterboxed (size, size, 3) float32 frames from an image directory,
+    sorted by name, decoded off-thread (`pipeline/loader.PrefetchLoader`)
+    so frame t+1's decode overlaps frame t's forward."""
+    import os
+
+    from maskrcnn_tpu_torch.pipeline.loader import PrefetchLoader
+
+    names = [n for n in sorted(os.listdir(path))
+             if n.lower().endswith((".jpg", ".jpeg", ".png", ".bmp"))]
+    items = ((n, os.path.join(path, n)) for n in names)
+    for _, canvas, _ in PrefetchLoader(items, size):
+        yield canvas

@@ -47,11 +47,14 @@ def _port_modules():
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
+    """Every module of the port, the CLI and evalkit included; `h5py` too
+    stays unloaded (the `.h5` functions import it, and the card's machine
+    may lack it)."""
     code = ("import sys\n"
             f"for m in {_port_modules()!r}:\n"
             "    __import__(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'maskrcnn_tpu.')) or m == 'maskrcnn_tpu')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'maskrcnn_tpu', 'h5py'))\n"
             "print(len(bad), bad[:5])\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
