@@ -36,6 +36,26 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            in micro-batches of --batch (the second main path, counted
            the same way: K5 and K6 once per forward, K2 never), then one
            profiled forward
+  train    training at R101-FPN @ 1024^2, 81 classes, bf16, batch --batch
+           on a fixed synthetic batch (8 GT boxes an image, 28^2
+           mini-masks), random weights from the seed with live BN: one
+           `train_step` at the tiny config in float32 on the card against
+           the CPU (phase train_small_vs_cpu); the K3, K4 and K2 autograd
+           Functions at the training shapes (K2: 200 ROIs an image, pool 7
+           and 14, bf16): each forward against the kernel's plain version
+           (K2 bit for bit) and each gradient against the plain graph's
+           (the graph is not cut), with each backward's time
+           (train_grad_*); then per configuration (batch BN: K1, K2;
+           frozen BN, the control, 1 warm-up and 2 timed steps: K1, K2;
+           frozen BN + train_fused_kernels: K1-K4; the same with remat,
+           1 and 2: K3 and K4 twice a step) the first
+           step's gradients (every conv and dense kernel nonzero, conv1,
+           res2a_branch2a, res3b_branch2b and fpn_p2 among them), 2 warm-up
+           and 5 timed steps (the main path, counted as above: step time
+           p50 / p95, images/s, peak memory; frozen BN must leave every BN
+           tensor as it was), one profiled step (device time by kernel,
+           busy share), and after the batch-BN steps
+           `calibrate_bn_stats` over 2 batches
   serve    `pipeline/serve.make_server` (max batch --batch, 20 ms window,
            uint8 wire) on a thread, the default (unfused) config at score
            threshold 0: 8 concurrent POST /detect from 8 threads, twice,
@@ -50,12 +70,20 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            from the seed as .npz): `evaluate --uint8` (both 12-number
            summaries, results.json and results.pb, K1-K4), `demo` (a PNG
            of the image's size), `stream --frames-dir --device-paste`
-           with both fused heads (K5 and K6 once per forward)
+           with both fused heads (K5 and K6 once per forward), `train
+           --synthetic --steps 3 --state --output` (a calibrated .npz) and
+           then `--resume --steps 5` (to step 5; K1, K2)
   bench    `maskrcnn_tpu_torch.tools.bench` at --batch, 10 iterations,
-           with `--fuse none` and `--fuse both`; its JSON lines
+           with `--fuse none` and `--fuse both`, then `--mode train` with
+           batch BN and with frozen BN + `--train-fused-kernels` (1 warm-up
+           and 2 timed steps: that it runs, launches and exits 0; the train
+           phase has the times); its JSON lines
 
 then a `kernels` line (each kernel's launches on the e2e or stream path,
-and on every path in `launches_by_path`), the nvidia-smi line, and last
+on every path in `launches_by_path`, per training step of each training
+configuration in `train_launches_per_step`, and for K2-K4 the training
+Function's forward and backward times and its forward's error), the
+nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -485,6 +513,24 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
 # K3 stem, K4 bottleneck chains
 # --------------------------------------------------------------------------
 
+# float32 sums in another order before one bf16 rounding: at most one bf16
+# ulp of each value (2^-8 relative), plus slack at zero
+STEM_TOL = (2.0 ** -8, 1e-3)
+# bf16 intermediates rounded at the same points, float32 sums in another
+# order: an ulp that later blocks carry on
+CHAIN_TOL = (0.02, 0.01)
+
+
+def over_tol(got, want, tol) -> tuple[float, int, str]:
+    """max |got - want| and the number of elements over
+    rel*|want| + abs*max|want|, with the tolerance as text."""
+    rel, of_max = tol
+    err = (got.float() - want.float()).abs()
+    bad = int((err > rel * want.float().abs()
+               + of_max * want.float().abs().max()).sum())
+    return err.max().item(), bad, f"{rel}*|plain| + {of_max}*max|plain| each"
+
+
 def check_stem(dev, rng, batch, params):
     """K3 at the main path's 1024^2, then at a size whose pooled grid
     (201 x 265) the kernel's 12 x 7 tile does not divide."""
@@ -499,11 +545,7 @@ def check_stem(dev, rng, batch, params):
                                   .astype(np.float32)).to(dev)
         want = stem_cuda.stem_plain(images, w, bias).float()
         got = stem_cuda.stem(images, w, bias).float()
-        err = (got - want).abs()
-        # float32 sums in another order before one bf16 rounding: at most
-        # one bf16 ulp of each value (2^-8 relative), plus slack at zero
-        tol_each = 2.0 ** -8 * want.abs() + 1e-3 * want.abs().max()
-        bad = int((err > tol_each).sum())
+        err, bad, tol = over_tol(got, want, STEM_TOL)
         call = lambda: stem_cuda.stem(images, w, bias)
         ms = cuda_ms(call, 20)
         ms_graph = cuda_ms_graph(call)
@@ -519,8 +561,7 @@ def check_stem(dev, rng, batch, params):
         flops = 2.0 * batch * (h // 2) * (wd // 2) * 64 * 147
         rows.append(record(
             name, "cuda", "maskrcnn_tpu_torch/csrc/stem.cu",
-            "maskrcnn_tpu/ops/stem_pallas.py:197", ms, plain_ms,
-            err.max().item(), "2^-8*|plain| + 1e-3*max|plain| each",
+            "maskrcnn_tpu/ops/stem_pallas.py:197", ms, plain_ms, err, tol,
             bound(nbytes(images, w, bias) + got.numel() * 2, flops,
                   BF16_FLOPS), library_ms,
             {"ms_graph": ms_graph, "ms_l2_cold": ms_cold,
@@ -528,7 +569,7 @@ def check_stem(dev, rng, batch, params):
              "elements_over_tol": bad, **kernels_per_call(call),
              "plain_max_abs": want.abs().max().item()},
             ok=bad == 0))
-        del images, want, got, err, tol_each
+        del images, want, got
     return rows
 
 
@@ -554,11 +595,7 @@ def check_chains(dev, rng, batch, params):
                              .astype(np.float32)).to(dev).to(torch.bfloat16)
         want = bc.chain_plain(x, blocks).float()
         got = bc.fused_bottleneck_chain(x, blocks).float()
-        err = (got - want).abs()
-        # bf16 intermediates rounded at the same points, float32 sums in
-        # another order: an ulp that later blocks carry on
-        tol_each = 0.02 * want.abs() + 0.01 * want.abs().max()
-        bad = int((err > tol_each).sum())
+        err, bad, tol = over_tol(got, want, CHAIN_TOL)
         ms = cuda_ms(lambda: bc.fused_bottleneck_chain(x, blocks), 10)
         ms_cold = cuda_ms_l2_cold(
             lambda: bc.fused_bottleneck_chain(x, blocks), 10)
@@ -587,9 +624,8 @@ def check_chains(dev, rng, batch, params):
         rows.append(record(
             f"K4_chain_res{stage}{letters}", "cuda",
             "maskrcnn_tpu_torch/csrc/bottleneck.cu",
-            "maskrcnn_tpu/ops/bottleneck_pallas.py:213", ms, plain_ms,
-            err.max().item(), "0.02*|plain| + 0.01*max|plain| each",
-            bnd, library_ms,
+            "maskrcnn_tpu/ops/bottleneck_pallas.py:213", ms, plain_ms, err,
+            tol, bnd, library_ms,
             {"ms_l2_cold": ms_cold, **tflops(ms, flops),
              "shape": list(x.shape), "cout": blocks[-1]["w3"].shape[1],
              "elements_over_tol": bad,
@@ -647,13 +683,21 @@ def profile_forward(detector, canvases, paste_size=None) -> dict:
     """Device time of one forward batch by kernel (torch.profiler): the
     port kernels, the rest by name, and the device's busy share of the
     wall time."""
-    from torch.profiler import ProfilerActivity, profile
     detector.run_batch(canvases, paste_size=paste_size)
+    return profile_call(lambda: detector.run_batch(canvases,
+                                                   paste_size=paste_size))
+
+
+def profile_call(fn) -> dict:
+    """One call of fn under torch.profiler (after the caller's warm-up):
+    device time by kernel, the port kernels by group, and the device's
+    busy share of the host's wall time."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        detector.run_batch(canvases, paste_size=paste_size)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -826,6 +870,354 @@ def stream(dev, seed, batch, frames=16):
             raise AssertionError(f"{k} launched {launches[k]} times in "
                                  f"{forwards} forwards")
     return launches
+
+
+# --------------------------------------------------------------------------
+# training: the kernels under autograd, the train step, calibration
+# --------------------------------------------------------------------------
+
+def leaf_grads(fn, params, x, cot, retain=False):
+    """fn(params, x) and the gradients of sum(out * cot) for every param
+    leaf and x, by name; `retain` keeps the graph for timing backwards."""
+    leaves = [(k, w) for k, d in params.items() for w in d]
+    p = {k: {w: v.detach().clone().requires_grad_(True)
+             for w, v in d.items()} for k, d in params.items()}
+    xx = x.detach().clone().requires_grad_(True)
+    out = fn(p, xx)
+    inputs = [p[k][w] for k, w in leaves] + [xx]
+
+    def backward():
+        return torch.autograd.grad(out, inputs, cot, retain_graph=True)
+
+    got = backward()
+    grads = {**{f"{k}/{w}": g for (k, w), g in zip(leaves, got)},
+             "x": got[-1]}
+    return out, grads, backward
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """max |got - want| of each gradient over its largest |want|."""
+    return {k: (got[k].float() - w.float()).abs().max().item()
+            / max(w.float().abs().max().item(), 1e-30)
+            for k, w in want.items()}
+
+
+def check_train_functions(dev, rng, batch, params):
+    """The K3, K4 and K2 autograd Functions at the training path's full
+    shapes: each forward (the kernel) against the kernel's plain version
+    on the same inputs, with the tolerance of the kernel's own check (K2
+    bit for bit); each gradient against the plain graph's with the same
+    cotangent, which shows that the graph is not cut (the backward is
+    that graph's vjp, recomputed); and the time of each backward beside
+    the forward."""
+    from maskrcnn_tpu_torch.models import resnet
+    from maskrcnn_tpu_torch.ops import bottleneck_cuda as bc
+    from maskrcnn_tpu_torch.ops import roi_align as ra
+    from maskrcnn_tpu_torch.ops import roi_align_cuda as rac
+    from maskrcnn_tpu_torch.ops import stem_cuda
+    bf16 = torch.bfloat16
+    # cuDNN's backward and the pool's index_put accumulate atomically, in
+    # an order that may change between runs: each gradient within
+    # TRAIN_GRAD_TOL of its largest value
+    tol = TRAIN_GRAD_TOL
+    rows = {}
+
+    def run(name, fn, plain, kernel_plain, p, x, cot):
+        """`kernel_plain(p, x, out)`: the Function's forward `out` against
+        the kernel's plain version, as (max |diff|, elements over the
+        tolerance, the tolerance)."""
+        out, g_fn, bwd = leaf_grads(fn, p, x, cot)
+        _, g_pl, bwd_plain = leaf_grads(plain, p, x, cot)
+        with torch.no_grad():
+            fwd_err, fwd_bad, fwd_tol = kernel_plain(p, x, out.detach())
+        errs = grad_errors(g_fn, g_pl)
+        worst = max(errs, key=errs.get)
+        fwd_ms = cuda_ms(lambda: fn(p, x), 5, 1)
+        bwd_ms = cuda_ms(bwd, 5, 1)
+        plain_ms = cuda_ms(lambda: plain(p, x), 5, 1)
+        plain_bwd_ms = cuda_ms(bwd_plain, 5, 1)
+        row = {"fwd_max_abs_err": fwd_err, "fwd_elements_over_tol": fwd_bad,
+               "fwd_tol": fwd_tol, "max_rel_grad_err": errs[worst],
+               "worst_leaf": worst, "tol": tol, "shape": list(x.shape),
+               "out": list(out.shape), "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+               "plain_fwd_ms": plain_ms, "plain_bwd_ms": plain_bwd_ms}
+        rows[name] = row
+        emit({"phase": f"train_grad_{name}", **row})
+        if fwd_bad:
+            raise AssertionError(f"{name}: the Function's forward is off the "
+                                 f"kernel's plain version at {fwd_bad} "
+                                 f"elements (max {fwd_err})")
+        if errs[worst] > tol:
+            raise AssertionError(f"{name}: gradient of {worst} off by "
+                                 f"{errs[worst]} of its largest")
+
+    h = 1024
+    images = torch.from_numpy(rng.uniform(-124, 132, (batch, h, h, 3))
+                              .astype(np.float32)).to(dev)
+    cot = torch.randn((batch, h // 4, h // 4, 64), device=dev,
+                      dtype=bf16)
+    stem_p = {k: params[k] for k in ("conv1", "bn_conv1")}
+
+    def stem_plain(p, x, out):
+        w, bias = stem_cuda.fold_stem_weights(p["conv1"], p["bn_conv1"])
+        return over_tol(out, stem_cuda.stem_plain(x, w, bias), STEM_TOL)
+
+    run("K3_stem", stem_cuda.stem_fused_diff,
+        lambda p, x: resnet._stem_layers(p, x, bf16), stem_plain, stem_p,
+        images, cot)
+    del images, cot
+
+    for stage, letters, hw, cin, cout in ((2, "abc", 256, 64, 256),
+                                          (3, "bcd", 128, 512, 512)):
+        keys = bc.chain_keys(stage, letters)
+        chain_p = {k: params[k] for k in keys}
+        x = torch.randn((batch, hw, hw, cin), device=dev, dtype=bf16)
+        cot = torch.randn((batch, hw, hw, cout), device=dev, dtype=bf16)
+
+        def plain(p, xx, stage=stage, letters=letters):
+            for letter in letters:
+                xx = resnet._bottleneck(xx, p, stage, letter, letter == "a",
+                                        1, bf16)
+            return xx
+
+        def chain_plain(p, xx, out, stage=stage, letters=letters):
+            blocks = bc.fold_bottleneck_chain(p, stage, letters)
+            return over_tol(out, bc.chain_plain(xx, blocks), CHAIN_TOL)
+
+        run(f"K4_chain_res{stage}{letters}",
+            lambda p, xx, stage=stage, letters=letters:
+            bc.chain_fused_diff(p, stage, letters, xx), plain, chain_plain,
+            chain_p, x, cot)
+        del x, cot
+
+    hw = [(s, s) for s in (256, 128, 64, 32)]
+    n = 200                              # train_rois_per_image
+    feats = [torch.randn((batch, s, s, 256), device=dev, dtype=bf16)
+             for s, _ in hw]
+    for crop in (7, 14):
+        rois = spread_rois(rng, batch, n).to(dev)
+
+        def pool(p, x, crop=crop, rois=rois):
+            levels = [p["pyr"][f"P{i + 2}"] for i in range(3)] + [x]
+            return ra.pyramid_roi_align(levels, rois, crop, (1024, 1024))
+
+        def pool_plain(p, x, crop=crop, rois=rois):
+            levels = [p["pyr"][f"P{i + 2}"] for i in range(3)] + [x]
+            ys, xs, level, valid = ra.prepare(rois.reshape(-1, 4), hw,
+                                              (1024, 1024), 224.0, crop)
+            return rac.roi_align_plain(levels, ys, xs, level, valid, n
+                                       ).reshape(batch, n, crop, crop, 256)
+
+        def kernel_plain(p, x, out, pool_plain=pool_plain):
+            # the kernel and the plain version do the same float32
+            # operations in the same order: bit for bit
+            want = pool_plain(p, x)
+            err = (out.float() - want.float()).abs().max().item()
+            return err, int((out != want).sum()), "bit-equal"
+
+        pyr = {"pyr": {f"P{i + 2}": feats[i] for i in range(3)}}
+        cot = torch.randn((batch, n, crop, crop, 256), device=dev,
+                          dtype=bf16)
+        run(f"K2_roi_align_pool{crop}", pool, pool_plain, kernel_plain, pyr,
+            feats[3], cot)
+    return rows
+
+
+TRAIN_GRAD_TOL = 2e-2
+TRAIN_CONFIGS = (
+    # name, config overrides, warm-up steps, timed steps, kernels it must
+    # launch, kernels it must not
+    ("batch_bn", dict(train_bn="batch"), 2, 5, ("nms", "roi_align"),
+     ("stem", "bottleneck")),
+    # the control of train_fused_kernels: frozen BN through the layers, two
+    # timed steps and the profiled one
+    ("frozen_bn", dict(train_bn="frozen"), 1, 2, ("nms", "roi_align"),
+     ("stem", "bottleneck")),
+    ("frozen_bn_fused", dict(train_bn="frozen", train_fused_kernels=True), 2,
+     5, ("nms", "roi_align", "stem", "bottleneck"), ()),
+    # remat re-runs the backbone forward in the backward: K3 and K4 twice a
+    # step
+    ("frozen_bn_fused_remat", dict(train_bn="frozen",
+                                   train_fused_kernels=True,
+                                   train_remat_backbone=True), 1, 2,
+     ("nms", "roi_align", "stem", "bottleneck"), ()),
+)
+CHECKED_LAYERS = ("conv1", "res2a_branch2a", "res3b_branch2b", "fpn_p2")
+
+
+def train(dev, seed, batch):
+    """`train_step` at R101-FPN @ 1024^2, 81 classes, bf16, batch `batch`,
+    on a fixed synthetic batch (8 GT boxes an image, 28^2 mini-masks),
+    random weights from the seed with live BN: for each configuration the
+    first step's gradients (every conv and dense kernel nonzero), then
+    warm-up and timed steps (the main path: the launch counts are zeroed
+    just before them and read just after), then BN calibration after the
+    batch-BN steps; and one step at the tiny config in float32 on the card
+    against the CPU."""
+    from maskrcnn_tpu_torch.core.anchors import generate_anchors
+    from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.ops import cuda_lib
+    from maskrcnn_tpu_torch.train.data import synthetic_train_batch
+    from maskrcnn_tpu_torch.train import step as T
+    from maskrcnn_tpu_torch.train.calibrate import calibrate_bn_stats
+
+    check_train_small(dev, seed)
+    by_path, per_step, grad_rows = {}, {}, None
+    for name, overrides, warm, timed, want, never in TRAIN_CONFIGS:
+        cfg = MaskRCNNConfig(**overrides)
+        gen = torch.Generator().manual_seed(seed)
+        params = M.init_mask_rcnn(gen, cfg)
+        live_bn(params, gen)
+        params = M.params_to(params, dev)
+        if grad_rows is None:
+            grad_rows = check_train_functions(
+                dev, np.random.default_rng(seed + 5), batch, params)
+            torch.cuda.empty_cache()
+        state, opt = T.make_train_state(params, cfg)
+        data = synthetic_train_batch(cfg, batch, dev, seed=seed + 1)
+        anchors = torch.from_numpy(generate_anchors(cfg)).to(dev)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        grads, metrics = T.compute_gradients(state, data, anchors, cfg, opt,
+                                             seed=seed)
+        first = {k: float(v) for k, v in metrics.items()}
+        first_ms = (time.perf_counter() - t0) * 1e3
+        zero = [layer for layer, ws in params.items() if "kernel" in ws
+                and not grads[layer]["kernel"].abs().max().item() > 0]
+        checked = {layer: grads[layer]["kernel"].abs().max().item()
+                   for layer in CHECKED_LAYERS}
+        state = T.apply_gradients(state, grads, opt)
+        del grads
+        losses = [first]
+        for _ in range(warm):
+            state, m = T.train_step(state, data, anchors, cfg, opt,
+                                    seed=seed)
+            losses.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        times = []
+        for _ in range(timed):                               # main path
+            t0 = time.perf_counter()
+            state, m = T.train_step(state, data, anchors, cfg, opt,
+                                    seed=seed)
+            losses.append({k: float(v) for k, v in m.items()})  # readback
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(cuda_lib.launches)
+        peak = torch.cuda.max_memory_allocated()
+
+        def one_step():
+            nonlocal state
+            state, _ = T.train_step(state, data, anchors, cfg, opt,
+                                    seed=seed)
+
+        profile = profile_call(one_step)
+        bn_moved = [layer for layer, ws in params.items()
+                    if "moving_variance" in ws
+                    and any(not torch.equal(state.params[layer][w], v)
+                            for w, v in ws.items())]
+        finite = all(np.isfinite(v) for row in losses for v in row.values())
+        p50, p95 = (float(np.percentile(times, q)) for q in (50, 95))
+        row = {"phase": f"train_{name}", "config": describe(cfg)
+               + f", {overrides}", "batch": batch,
+               "first_step_ms": first_ms, "warmup_steps": warm,
+               "timed_steps": timed, "step_ms": times, "step_ms_p50": p50,
+               "step_ms_p95": p95, "images_per_s": batch / p50 * 1e3,
+               "max_memory_allocated_bytes": peak, "losses_first": first,
+               "losses_last": losses[-1], "finite": finite,
+               "zero_grad_kernels": zero, "checked_grad_max": checked,
+               "bn_layers_moved": len(bn_moved), "launches": launches,
+               "profile": profile,
+               "launches_per_step": {k: v / timed
+                                     for k, v in launches.items()}}
+        if name == "batch_bn":
+            t0 = time.perf_counter()
+            cal = calibrate_bn_stats(
+                state.params, [synthetic_train_batch(
+                    cfg, batch, dev, seed=seed + 10 + i)["images"]
+                    for i in range(2)], anchors, cfg)
+            row["calibrate_s"] = time.perf_counter() - t0
+            mv = torch.cat([cal[k]["moving_variance"] for k in cal
+                            if "moving_variance" in cal[k]])
+            row["calibrated_moving_variance"] = [mv.min().item(),
+                                                 mv.max().item()]
+            if not (torch.isfinite(mv).all() and mv.min() >= 0
+                    and cal["bn_conv1"]["moving_variance"].ne(
+                        state.params["bn_conv1"]["moving_variance"]).any()):
+                raise AssertionError("calibration left the statistics "
+                                     "unchanged or not finite")
+            del cal
+        emit(row)
+        by_path[f"train_{name}"] = launches
+        per_step[name] = row["launches_per_step"]
+        problems = []
+        if not finite:
+            problems.append("non-finite loss")
+        if zero:
+            problems.append(f"zero gradient at {zero[:8]}")
+        if cfg.train_bn == "frozen" and bn_moved:
+            problems.append(f"frozen BN moved: {bn_moved[:5]}")
+        missing = [k for k in want if launches[k] == 0]
+        extra = [k for k in never if launches[k]]
+        if missing or extra:
+            problems.append(f"launched {launches}: missing {missing}, "
+                            f"unexpected {extra}")
+        if cfg.train_remat_backbone and launches["stem"] != 2 * timed:
+            problems.append(f"remat: K3 launched {launches['stem']} times "
+                            f"in {timed} steps (expected twice a step)")
+        if problems:
+            raise AssertionError(f"train {name}: {problems}")
+        del opt, params, data, m
+        state = None
+        torch.cuda.empty_cache()
+    return by_path, per_step, grad_rows
+
+
+def check_train_small(dev, seed):
+    """One training step at the tiny config in float32 on the card and on
+    the CPU, from the same params and draws, in both BN modes."""
+    from maskrcnn_tpu_torch.core.anchors import generate_anchors
+    from maskrcnn_tpu_torch.core.config import tiny_test_config
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.train.data import synthetic_train_batch
+    from maskrcnn_tpu_torch.train import step as T
+    out = {}
+    for mode in ("batch", "frozen"):
+        cfg = tiny_test_config().replace(compute_dtype="float32",
+                                         train_bn=mode)
+        gen = torch.Generator().manual_seed(seed)
+        params = M.init_mask_rcnn(gen, cfg)
+        live_bn(params, gen)
+        data = synthetic_train_batch(cfg, 2, "cpu", seed=seed + 1, gt=4)
+        anchors = torch.from_numpy(generate_anchors(cfg))
+        draws = T.draw_uniforms(torch.Generator().manual_seed(seed), 2,
+                                anchors.shape[0], cfg.max_proposals + 4,
+                                "cpu")
+        res = {}
+        for where in ("cpu", dev):
+            state, opt = T.make_train_state(M.params_to(params, where), cfg)
+            new, m = T.train_step(
+                state, {k: v.to(where) for k, v in data.items()}, anchors,
+                cfg, opt, draws={k: v.to(where) for k, v in draws.items()})
+            res[str(where)] = ({k: float(v) for k, v in m.items()},
+                               new.params["conv1"]["kernel"].cpu())
+        (l_cpu, k_cpu), (l_dev, k_dev) = res["cpu"], res[str(dev)]
+        rel = {k: abs(l_dev[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-6)
+               for k in l_cpu}
+        out[mode] = {"losses_cpu": l_cpu, "losses_card": l_dev,
+                     "max_rel_loss_err": max(rel.values()),
+                     "conv1_after_step_max_abs_err":
+                         (k_cpu - k_dev).abs().max().item()}
+    # float32 layers summed in another order on the two devices (TF32
+    # off); batch statistics amplify it through the layers
+    tol = 2e-3
+    emit({"phase": "train_small_vs_cpu", "tol": tol, **out})
+    bad = [m for m, r in out.items() if not r["max_rel_loss_err"] <= tol]
+    if bad:
+        raise AssertionError(f"train step on the card disagrees with the "
+                             f"CPU in {bad}")
 
 
 # --------------------------------------------------------------------------
@@ -1009,7 +1401,8 @@ def ap_table(text: str) -> dict:
 def cli(dev, seed, batch, base):
     """`maskrcnn_tpu_torch.cli.main` in-process over a temporary COCO
     workspace, `base` config at score threshold 0: evaluate (K1-K4), demo,
-    and stream with both fused heads (K5 and K6 once per forward)."""
+    and stream with both fused heads (K5 and K6 once per forward); then
+    train on synthetic data, and resume it."""
     import contextlib
     import io
     import os
@@ -1020,7 +1413,8 @@ def cli(dev, seed, batch, base):
     from maskrcnn_tpu_torch.core.coco_names import COCO_CATEGORY_IDS, \
         COCO_CLASS_NAMES
     from maskrcnn_tpu_torch.evalkit import mask_rle
-    from maskrcnn_tpu_torch.io.weights import save_npz_checkpoint
+    from maskrcnn_tpu_torch.io.weights import (load_npz_checkpoint,
+                                               save_npz_checkpoint)
     from maskrcnn_tpu_torch.models import mask_rcnn as M
     from maskrcnn_tpu_torch.ops import cuda_lib
 
@@ -1121,6 +1515,22 @@ def cli(dev, seed, batch, base):
              "--config", fused_path, "--weights", weights] + on)
         with open(stream_json) as f:
             stream_stats = json.load(f)
+
+        # train: a synthetic overfit run (R50 @ 128^2, as the JAX CLI's
+        # --synthetic) with a state file and a calibrated .npz, then
+        # --resume to the total step
+        state_path = os.path.join(root, "train_state.pt")
+        npz_path = os.path.join(root, "trained.npz")
+        train_argv = ["train", "smoke", "--synthetic", "--seed", str(seed),
+                      "--batch", str(batch), "--log-every", "1",
+                      "--state", state_path] + on
+        out_train, l_train, s_train = run(
+            train_argv + ["--steps", "3", "--output", npz_path,
+                          "--calibrate-batches", "2"])
+        out_resume, l_resume, s_resume = run(
+            train_argv + ["--steps", "5", "--resume", "--no-calibrate"])
+        trained = load_npz_checkpoint(npz_path)
+        state_step = torch.load(state_path, weights_only=True)["step"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "cli", "config": describe(cfg)
@@ -1131,8 +1541,23 @@ def cli(dev, seed, batch, base):
           "demo": {"seconds": s_demo, "launches": l_demo,
                    "png_hw": demo_size, "stdout": out_demo.splitlines()[:1]},
           "stream": {"seconds": s_stream, "launches": l_stream,
-                     "stats": stream_stats}})
+                     "stats": stream_stats},
+          "train": {"seconds": s_train, "launches": l_train,
+                    "stdout": out_train.splitlines()[-6:]},
+          "train_resume": {"seconds": s_resume, "launches": l_resume,
+                           "stdout": out_resume.splitlines()[-4:],
+                           "state_step": state_step}})
     problems = []
+    if "train state saved" not in out_train or "BN statistics calibrated" \
+            not in out_train or not np.abs(
+                trained["bn_conv1"]["moving_mean"]).sum() > 0:
+        problems.append(f"train: {out_train[-500:]}")
+    if "resumed from" not in out_resume or state_step != 5:
+        problems.append(f"train --resume ended at step {state_step}: "
+                        f"{out_resume[-500:]}")
+    for what, launched in (("train", l_train), ("train --resume", l_resume)):
+        if not (launched["nms"] and launched["roi_align"]):
+            problems.append(f"{what} launched {launched}: no K1 or K2")
     if [len(stats.get(t, [])) for t in ("bbox", "segm")] != [12, 12]:
         problems.append(f"evaluate printed {stats}")
     if len(rows) != 4 * cfg.max_detections or bad_rows:
@@ -1151,12 +1576,14 @@ def cli(dev, seed, batch, base):
         problems.append(f"stream ran {stream_stats['frames']} frames")
     if problems:
         raise AssertionError(f"cli: {problems}")
-    return {"cli_evaluate": l_eval, "cli_stream": l_stream}
+    return {"cli_evaluate": l_eval, "cli_stream": l_stream,
+            "cli_train": l_train}
 
 
 def bench(batch):
     """`maskrcnn_tpu_torch.tools.bench` with the unfused and the fused
-    heads; its JSON lines are printed as they are."""
+    heads, then `--mode train` in both training configurations; its JSON
+    lines are printed as they are."""
     import contextlib
     import io
     from maskrcnn_tpu_torch.ops import cuda_lib
@@ -1184,6 +1611,32 @@ def bench(batch):
         if missing:
             raise AssertionError(f"bench --fuse {fuse} never launched "
                                  f"{missing}")
+        torch.cuda.empty_cache()
+    for name, flags, want in (
+            ("batch_bn", ["--train-bn", "batch"], ("nms", "roi_align")),
+            ("frozen_bn_fused", ["--train-bn", "frozen",
+                                 "--train-fused-kernels"],
+             ("nms", "roi_align", "stem", "bottleneck"))):
+        buf = io.StringIO()
+        cuda_lib.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_tool.main(["--mode", "train", "--batch", str(batch),
+                                  "--iters", "2", "--warmup", "1"] + flags)
+        key = f"bench_train_{name}"
+        launches[key] = dict(cuda_lib.launches)
+        if rc != 0:
+            raise AssertionError(f"bench --mode train {flags} exited {rc}")
+        line = buf.getvalue().strip().splitlines()[-1]
+        print(line, flush=True)
+        result = json.loads(line)
+        emit({"phase": key, "launches": launches[key], "result": result})
+        if not (result["train_images_per_s"] > 0
+                and np.isfinite(result["step_p95_ms"])):
+            raise AssertionError(f"bench --mode train {flags}: {result}")
+        missing = [k for k in want if launches[key][k] == 0]
+        if missing:
+            raise AssertionError(f"bench --mode train {flags} never "
+                                 f"launched {missing}")
         torch.cuda.empty_cache()
     return launches
 
@@ -1239,6 +1692,10 @@ def main() -> int:
     launches_stream = stream(dev, args.seed, args.batch)
     torch.cuda.empty_cache()
     by_path = {"e2e": launches, "stream": launches_stream}
+    train_paths, train_per_step, train_grads = train(dev, args.seed,
+                                                     args.batch)
+    by_path.update(train_paths)
+    torch.cuda.empty_cache()
     full = MaskRCNNConfig()            # R101-FPN @ 1024^2, 81 classes, bf16
     by_path["serve"] = serve(dev, args.seed, args.batch, full)
     torch.cuda.empty_cache()
@@ -1254,6 +1711,14 @@ def main() -> int:
                                                       "roi_mask_head")
                            else launches)[key]
         row["launches_by_path"] = {p: n[key] for p, n in by_path.items()}
+        row["train_launches_per_step"] = {c: n[key]
+                                          for c, n in train_per_step.items()}
+        grad = train_grads.get(row["name"])   # K2, K3, K4 at train shapes
+        if grad:
+            row["train_fwd_ms"] = grad["fwd_ms"]
+            row["train_bwd_ms"] = grad["bwd_ms"]
+            row["train_fwd_max_abs_err"] = grad["fwd_max_abs_err"]
+            row["train_max_rel_grad_err"] = grad["max_rel_grad_err"]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,12 +5,13 @@
     python -m maskrcnn_tpu_torch.cli evaluate <model> <dataset> [--limit 5 ...]
     python -m maskrcnn_tpu_torch.cli stream   <model> [--frames-dir DIR ...]
     python -m maskrcnn_tpu_torch.cli serve    <model> [--port 8389 --max-batch 8]
+    python -m maskrcnn_tpu_torch.cli train    <model> [--synthetic ...]
     python -m maskrcnn_tpu_torch.cli demo     <model> <image> [-o out.png]
     python -m maskrcnn_tpu_torch.cli download <name> [--url URL]
 
-Every subcommand that runs the detector runs it on the card; `--device cpu`
+Every subcommand that runs the model runs it on the card; `--device cpu`
 asks for the plain PyTorch path on the CPU instead. Not ported yet, each
-exiting non-zero with the ROADMAP.md item that will port it: `train` (M8),
+exiting non-zero with the ROADMAP.md item that will port it:
 `evaluate --dp` (M9), `convert --export-savedmodel` (M11) and
 `evaluate --compare-tf` (the JAX package's TF oracle, not ported).
 
@@ -28,7 +29,6 @@ import sys
 import time
 
 _NOT_PORTED = {
-    "train": "training is not ported yet (ROADMAP.md Queue 1, M8)",
     "dp": "evaluate --dp (data parallel) is not ported yet "
           "(ROADMAP.md Queue 1, M9)",
     "export_savedmodel": "convert --export-savedmodel is not ported yet "
@@ -255,6 +255,141 @@ def cmd_evaluate(args) -> int:
             print(f"== {iou_type} (compare) ==")
             COCOEvaluator(dataset, other, iou_type,
                           img_ids=eval_ids).summarize()
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+def cmd_train(args) -> int:
+    """Training on a COCO-format dataset, or `--synthetic` for a
+    self-contained overfit run on one fixed random batch."""
+    import numpy as np
+    import torch
+
+    from maskrcnn_tpu_torch.core.anchors import generate_anchors
+    from maskrcnn_tpu_torch.io.weights import save_npz_checkpoint
+    from maskrcnn_tpu_torch.models.mask_rcnn import (init_mask_rcnn,
+                                                     params_to,
+                                                     resolve_device)
+    from maskrcnn_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                     MetricsLogger,
+                                                     restore_train_state,
+                                                     save_train_state)
+    from maskrcnn_tpu_torch.train.data import (COCOTrainLoader,
+                                               PrefetchBatcher,
+                                               synthetic_train_batch)
+    from maskrcnn_tpu_torch.train.step import make_train_state, train_step
+
+    device = resolve_device(args.device)
+    config = _load_config(args.config, args.model)
+    if args.exact:
+        config = config.exact_numerics()
+        print("# --exact: float32 compute, exact top-k, table anchors",
+              flush=True)
+    if args.train_bn:
+        config = config.replace(train_bn=args.train_bn)
+    if args.remat:
+        config = config.replace(train_remat_backbone=True)
+    if args.bf16_momentum:
+        config = config.replace(train_momentum_dtype="bfloat16")
+    if args.synthetic:
+        config = config.replace(
+            architecture="resnet50",
+            input_image_shape=(args.image_size, args.image_size, 3),
+            num_classes=5,
+            anchor_scales=tuple(args.image_size / 16 * s
+                                for s in (1, 2, 4, 8, 16)),
+            pre_nms_max_proposals=256, max_proposals=64, max_detections=16,
+            train_rois_per_image=32, rpn_train_anchors_per_image=64)
+    print(f"# device: {_device_name(device)}", flush=True)
+
+    params = params_to(init_mask_rcnn(
+        torch.Generator().manual_seed(args.seed), config), device)
+    anchors = torch.from_numpy(generate_anchors(config)).to(device)
+    state, opt = make_train_state(params, config, trainable=args.trainable)
+
+    batcher = None
+    if args.synthetic:
+        fixed = synthetic_train_batch(config, args.batch, device,
+                                      seed=args.seed, gt=4)
+        loader = lambda step: fixed  # noqa: E731 (fixed-batch overfit)
+    else:
+        # --exact keeps the resampled float32 canvas; otherwise uint8
+        # canvases, 4x fewer host-to-device bytes
+        batcher = PrefetchBatcher(COCOTrainLoader(
+            args.annotations, args.images_dir, config,
+            batch_size=args.batch, seed=args.seed, flip_prob=args.flip_prob,
+            cache_images=args.cache_images,
+            image_dtype=np.float32 if args.exact else np.uint8))
+        loader = batcher.get_batch
+
+    try:
+        manager = (CheckpointManager(args.checkpoint_dir, keep=args.keep)
+                   if args.checkpoint_dir else None)
+        if args.resume:
+            restored = (manager.restore_latest(state)
+                        if manager is not None else None)
+            if restored is not None:
+                state = restored
+                print(f"resumed from {args.checkpoint_dir} at step "
+                      f"{state.step}")
+            elif args.state and os.path.exists(args.state):
+                # an empty --checkpoint-dir falls back to --state
+                state = restore_train_state(state, args.state)
+                print(f"resumed from {args.state} at step {state.step}")
+            else:
+                print("# --resume: no checkpoint found, starting fresh",
+                      file=sys.stderr)
+
+        mlog = MetricsLogger(args.metrics_log)
+        t0 = time.time()
+        start_step = state.step
+        end_step = start_step + args.steps
+        if args.resume and start_step > 0:
+            # --steps is the TOTAL budget under --resume: an interrupted run
+            # finishes its plan instead of training N more steps
+            end_step = max(args.steps, start_step)
+            print(f"# --resume: continuing to total step {end_step}")
+            if start_step >= end_step:
+                print(f"# WARNING: checkpoint is already at step "
+                      f"{start_step} >= --steps {args.steps}; no step "
+                      "runs. --steps is the TOTAL budget under --resume: "
+                      "raise it to train further.", file=sys.stderr)
+        for step in range(start_step, end_step):
+            # the sampling draws of step s come from (seed + 1, s), so a
+            # resumed run draws what an uninterrupted one does
+            state, metrics = train_step(state, loader(step), anchors, config,
+                                        opt, seed=args.seed + 1)
+            if step % args.log_every == 0 or step == end_step - 1:
+                shown = {k: round(float(v), 4) for k, v in metrics.items()}
+                print(f"step {step:5d}  {shown}  ({time.time() - t0:.1f}s)")
+                mlog.log(step, metrics, time.time() - t0)
+            if (manager is not None and args.checkpoint_every
+                    and (step + 1) % args.checkpoint_every == 0):
+                manager.save(state)
+        if manager is not None:
+            path = manager.save(state)
+            manager.wait()
+            print(f"train state saved: {path} (step {state.step})")
+        if args.state:
+            save_train_state(state, args.state)
+            print(f"train state saved: {args.state} (step {state.step})")
+        params_out = state.params
+        if config.train_bn == "batch" and not args.no_calibrate:
+            # batch-statistic training never touches the moving
+            # statistics: re-estimate them for the inference path
+            from maskrcnn_tpu_torch.train.calibrate import calibrate_bn_stats
+            cal = [loader(i)["images"] for i in range(args.calibrate_batches)]
+            params_out = calibrate_bn_stats(params_out, cal, anchors, config)
+            print(f"BN statistics calibrated over {len(cal)} batches")
+        if args.output:
+            save_npz_checkpoint(params_out, args.output)
+            print(f"checkpoint saved: {args.output}")
+    finally:
+        if batcher is not None:
+            batcher.close()  # cancel the dangling one-ahead prefetch
     return 0
 
 
@@ -511,10 +646,65 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(e)
     e.set_defaults(fn=cmd_evaluate)
 
-    t = sub.add_parser("train", help="not ported yet (ROADMAP.md, M8)")
+    t = sub.add_parser("train", help="train on a COCO dataset or "
+                                      "--synthetic data")
     t.add_argument("model")
-    t.add_argument("rest", nargs=argparse.REMAINDER)
-    t.set_defaults(fn=lambda args: _not_ported("train"))
+    t.add_argument("--config")
+    t.add_argument("--annotations", help="COCO instances json")
+    t.add_argument("--images_dir")
+    t.add_argument("--synthetic", action="store_true",
+                   help="self-contained overfit run on one fixed random "
+                        "batch, no dataset needed")
+    t.add_argument("--steps", type=int, default=20)
+    t.add_argument("--batch", type=int, default=2)
+    t.add_argument("--image-size", type=int, default=128,
+                   help="with --synthetic")
+    t.add_argument("--trainable", default="all",
+                   help="all|heads|3+|4+|5+ or a layer-name regex")
+    t.add_argument("--train-bn", choices=("batch", "frozen"),
+                   help="override config.train_bn: 'batch' = from-scratch "
+                        "recipe (live batch statistics, calibrated after "
+                        "training); 'frozen' = Matterport fine-tuning "
+                        "(stored statistics, every BN layer frozen)")
+    t.add_argument("--remat", action="store_true",
+                   help="recompute the backbone + FPN in the backward "
+                        "(config.train_remat_backbone): less activation "
+                        "memory for one more backbone forward")
+    t.add_argument("--bf16-momentum", action="store_true",
+                   help="store the SGD momentum trace in bfloat16 "
+                        "(config.train_momentum_dtype): half the optimizer "
+                        "state; params and the update stay float32")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--log-every", type=int, default=5)
+    t.add_argument("--output", help="write the final checkpoint.npz here")
+    t.add_argument("--state", help="train-state file for save/resume")
+    t.add_argument("--no-calibrate", action="store_true",
+                   help="skip the BN statistics calibration after "
+                        "batch-BN training")
+    t.add_argument("--calibrate-batches", type=int, default=8)
+    t.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint-dir (latest) or --state; "
+                        "--steps then counts as the TOTAL budget")
+    t.add_argument("--checkpoint-dir",
+                   help="directory for periodic ckpt_<step>.pt saves")
+    t.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save every N steps (0 = only at the end)")
+    t.add_argument("--keep", type=int, default=3,
+                   help="checkpoints to keep in --checkpoint-dir")
+    t.add_argument("--metrics-log",
+                   help="append JSONL training metrics to this file")
+    t.add_argument("--flip-prob", type=float, default=0.5,
+                   help="horizontal-flip probability (Matterport's "
+                        "Fliplr(0.5); 0 disables)")
+    t.add_argument("--exact", action="store_true",
+                   help="reference-exact numerics in training too: float32 "
+                        "compute, exact top-k, table anchors, float32 "
+                        "canvases")
+    t.add_argument("--cache-images", type=int, default=0,
+                   help="keep up to N decoded examples in host memory (the "
+                        "first N distinct images seen; 0 disables)")
+    _add_device(t)
+    t.set_defaults(fn=cmd_train)
 
     d = sub.add_parser("download", help="fetch pretrained weights")
     d.add_argument("name")

@@ -2,13 +2,13 @@
 
 Field for field the same dataclass as `maskrcnn_tpu/core/config.py`, so a
 config dict or JSON file means the same model in both packages. The port
-reads the same fields; where a field names a TPU-only mechanism
-(`proposal_topk_recall`, `train_*`) the port keeps it for schema
-compatibility, and its documentation below is the JAX package's. The
-`fuse_*` flags are read: in the port they select the fused ROIAlign heads
-wherever they are set, the CUDA kernels K5 (`fuse_classifier_head`) and K6
-(`fuse_mask_head`, pool 14) on the card, bfloat16 only, and their plain
-versions on the CPU (`models/mask_rcnn.py::forward`).
+reads the same fields; `proposal_topk_recall` names a TPU-only mechanism
+and is kept for schema compatibility (the port's top-k is always exact).
+The `fuse_*` flags are read: in the port they select the fused ROIAlign
+heads wherever they are set, the CUDA kernels K5 (`fuse_classifier_head`)
+and K6 (`fuse_mask_head`, pool 14) on the card, bfloat16 only, and their
+plain versions on the CPU (`models/mask_rcnn.py::forward`). The `train_*` fields drive the port's
+training (`train/step.py`) and are documented for what the port does.
 
 One frozen dataclass replaces the reference's three config tiers (SURVEY.md §5):
 the JSON model config (reference `README.md:85-92`, loaded at
@@ -58,18 +58,10 @@ class MaskRCNNConfig:
     max_proposals: int = 1000
     proposal_nms_threshold: float = 0.7
     bbox_std_dev: tuple[float, float, float, float] = (0.1, 0.1, 0.2, 0.2)
-    # Pre-NMS top-k selection: recall target for `lax.approx_max_k`, or None
-    # for exact `lax.top_k`. On TPU exact `top_k` over 262k anchor scores
-    # costs 32 ms at batch 48; at recall targets >= 0.99 approx_max_k
-    # degenerates to an exact pass (PartialReduce l == n, 16.9 ms); 0.95 is
-    # the first target that actually reduces (8.2 ms). Its per-candidate
-    # recall loss lands in the deep pre-NMS tail: on spatially-clustered
-    # synthetic RPN scores, 99.96% of the FINAL post-NMS 1000 proposals are
-    # bit-identical to the exact path (docs/PERF.md). Non-TPU backends
-    # lower approx_max_k to the exact op, so CPU oracle tests are
-    # bit-identical either way. The reference's own top-6000 cut is
-    # tie-arbitrary (saturated fp32 softmax scores —
-    # ProposalLayer.swift:131-134), so this cut is within its semantics.
+    # Pre-NMS top-k selection in the JAX package: a recall target for
+    # `lax.approx_max_k` on a TPU, or None for exact `lax.top_k`. Off a TPU
+    # both are exact. The port's top-k is always the exact, stable one
+    # (ops/proposals.py::top_k_indices), whatever this field holds.
     proposal_topk_recall: float | None = 0.95
     # Decode selected anchors analytically from the top-k indices inside the
     # proposal stage (core/anchors.anchors_at) instead of gathering from the
@@ -97,65 +89,51 @@ class MaskRCNNConfig:
 
     # --- numerics ----------------------------------------------------------
     compute_dtype: str = "bfloat16"  # convs/matmuls; box math stays float32
-    # reference quantizes weights to fp16 (Conversion/task.py:90,102,114);
-    # bf16 is the TPU-idiomatic equivalent.
+    # reference quantizes weights to fp16 (Conversion/task.py:90,102,114).
 
-    # Run the classifier head INSIDE the pool-7 ROIAlign Pallas kernel
-    # (ops/roi_align_pallas.py::pack_classifier_head): the head's matmuls
-    # ride the kernel's DMA-segment-rate shadow instead of occupying their
-    # own pipeline slot. TPU-only; identical math (BN folded into the
-    # dense weights — inference BN is affine).
+    # Run the classifier head fused behind the pool-7 ROIAlign (K5 on the
+    # card; BN folded into the dense weights, inference BN being affine).
     fuse_classifier_head: bool = False
 
-    # Run the ENTIRE mask head (4x conv3x3+BN+relu, 2x2/2 deconv, per-class
-    # select, sigmoid) inside the pool-14 ROIAlign kernel: activations never
-    # leave VMEM and the pool DMA hides under the conv matmuls
-    # (ops/roi_align_pallas.py::pack_mask_head). TPU-only; identical math.
+    # Run the whole mask head (4x conv3x3+BN+relu, 2x2/2 deconv, per-class
+    # select, sigmoid) fused behind the pool-14 ROIAlign (K6 on the card).
     fuse_mask_head: bool = False
 
     # --- training (capability the reference stubs out: TrainCommand.swift) -
-    # BN statistics during training: "batch" (live batch stats — required
-    # when training from scratch; moving stats are re-estimated afterwards by
-    # train.calibrate.calibrate_bn_stats) or "frozen" (stored moving stats —
-    # the Matterport fine-tuning recipe for pretrained weights).
+    # BN statistics during training: "batch" (live batch statistics, the
+    # from-scratch recipe; the moving statistics are re-estimated afterwards
+    # by train.calibrate.calibrate_bn_stats) or "frozen" (stored moving
+    # statistics, the Matterport fine-tuning recipe for pretrained weights;
+    # make_optimizer then freezes every BN layer whole).
     train_bn: str = "batch"
     train_rois_per_image: int = 200
     roi_positive_ratio: float = 0.33
     rpn_train_anchors_per_image: int = 256
     learning_rate: float = 1e-3
     weight_decay: float = 1e-4
-    # Balanced-subsample selection in target assignment: "approx" uses
-    # `lax.approx_max_k` over the masked random scores (3.3× faster on the
-    # 262k-anchor ranking, docs/rpn_targets_probe_r03.json). Among ELIGIBLE
-    # anchors a recall miss just swaps one uniformly random winner for
-    # another (scores are iid uniform, anchors exchangeable) — but when the
-    # eligible-positive count is close to the positive quota, bin
-    # collisions can let a masked (-1) entry into the top-k, so the
-    # sampled positive count may fall slightly below min(k_pos,
-    # n_eligible) with negatives backfilling the quota: a small systematic
-    # positive-undersampling bias, not exact uniform-balanced semantics.
-    # "exact" restores `lax.top_k` selection (and is what --exact sets).
+    # Balanced-subsample selection in target assignment. The JAX package
+    # uses `lax.approx_max_k` for "approx" (exact off a TPU) and
+    # `lax.top_k` for "exact"; the port takes the exact, stable top k
+    # (ties to the lower index, ops/proposals.py::top_k_indices) for both
+    # values, so its sampling equals the JAX package's off a TPU. Kept and
+    # validated for schema compatibility ("exact" is what --exact sets).
     train_sampling_topk: str = "approx"
-    # Run the fused Pallas stem/res2/res3 kernels in the TRAINING forward
-    # too (frozen-BN only; custom_vjp with an XLA-vjp backward,
-    # models/resnet.py). Default OFF: measured NEGATIVE on v5e — the
-    # backward's XLA-forward rematerialization costs more than the kernel
-    # forward saves (frozen-BN batch 8: 19.5 img/s with vs 20.6 without;
-    # batch 16 + remat: 20.9 vs 21.1 — docs/bench_train_r04.json,
-    # PERF.md negative result #17). The capability stays for memory-bound
-    # regimes where the sections' activation savings matter.
+    # Run the stem (K3) and the res2 a-c / res3 b-d chains (K4) as the CUDA
+    # kernels in the training forward too: frozen BN and bf16 on the card
+    # only, through autograd Functions whose backward recomputes the layer
+    # graph's gradient (ops/stem_cuda.StemFusedDiff,
+    # ops/bottleneck_cuda.ChainFusedDiff; there is no backward kernel).
+    # Off by default, as in the JAX package; its step time against the
+    # layer path is in PERF.md.
     train_fused_kernels: bool = False
-    # Rematerialize the backbone+FPN in the backward pass (jax.checkpoint):
-    # trades one extra backbone forward (~66 ms at batch 8) for NOT storing
-    # its activations, unlocking larger training batches on a 16 GB chip.
-    # Off by default — batch 8 fits without it (PERF.md training section).
+    # Recompute the backbone + FPN in the backward
+    # (torch.utils.checkpoint): one more backbone forward per step for not
+    # keeping its activations, so larger batches fit. With
+    # train_fused_kernels the kernels then run twice per step.
     train_remat_backbone: bool = False
-    # SGD momentum accumulator dtype. "bfloat16" halves the optimizer
-    # state's HBM footprint and traffic (~256 MB on the 64 M-param
-    # flagship); params stay float32 (an f32 master copy is inherent —
-    # optax.trace casts the accumulator only). The VERDICT-r04 "bf16
-    # gradient/accumulation" lever; measured arm in
-    # docs/bench_train_r05.json.
+    # SGD momentum trace dtype. "bfloat16" stores the trace in half the
+    # bytes; the params and the update stay float32 (the trace is rounded
+    # once it is used, as optax.trace does).
     train_momentum_dtype: str = "float32"
 
     def __post_init__(self):
@@ -270,11 +248,9 @@ class MaskRCNNConfig:
 
     def exact_numerics(self) -> "MaskRCNNConfig":
         """The production-vs-exact switch as ONE knob (CLI `--exact`):
-        float32 compute, exact `lax.top_k` proposal selection, table
-        anchors, no fused heads. Production defaults (bf16 + approx top-k
-        + analytic anchors) trade ≤0.01 AP for ~2× throughput
-        (docs/PARITY.md per-knob table); this is the escape hatch for
-        users who want reference-exact numerics without config surgery."""
+        float32 compute, exact proposal top-k, table anchors, no fused
+        heads, exact target sampling: the escape hatch for users who want
+        reference-exact numerics without config surgery."""
         return self.replace(
             compute_dtype="float32",
             proposal_topk_recall=None,

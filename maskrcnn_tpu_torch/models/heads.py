@@ -32,25 +32,32 @@ def init_classifier_head(gen: torch.Generator, num_classes: int,
 
 
 def apply_classifier_head(params, pooled: torch.Tensor, num_classes: int,
-                          dtype=torch.bfloat16):
+                          dtype=torch.bfloat16, with_logits: bool = False,
+                          bn_ctx=None):
     """(N, pool, pool, C) -> probs (N, num_classes) f32, deltas
-    (N, num_classes, 4) f32."""
+    (N, num_classes, 4) f32 [, logits f32 for the training losses].
+    `bn_ctx` as in `nn.bn_apply`."""
     n = pooled.shape[0]
     k1 = params["mrcnn_class_conv1"]
     flat_k = k1["kernel"].reshape(-1, k1["kernel"].shape[-1])
     x = nn.dense(pooled.reshape(n, -1), {"kernel": flat_k,
                                          "bias": k1["bias"]}, dtype=dtype)
-    x = nn.relu(nn.bn_apply(x.to(dtype), params, "mrcnn_class_bn1"))
+    x = nn.relu(nn.bn_apply(x.to(dtype), params, "mrcnn_class_bn1",
+                            bn_ctx))
     k2 = params["mrcnn_class_conv2"]
     x = nn.dense(x, {"kernel": k2["kernel"].reshape(k2["kernel"].shape[-2],
                                                     k2["kernel"].shape[-1]),
                      "bias": k2["bias"]}, dtype=dtype)
-    shared = nn.relu(nn.bn_apply(x.to(dtype), params, "mrcnn_class_bn2"))
+    shared = nn.relu(nn.bn_apply(x.to(dtype), params, "mrcnn_class_bn2",
+                                 bn_ctx))
     logits = nn.dense(shared, params["mrcnn_class_logits"],
                       dtype=dtype).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     deltas = nn.dense(shared, params["mrcnn_bbox_fc"], dtype=dtype)
-    return probs, deltas.to(torch.float32).reshape(n, num_classes, 4)
+    deltas = deltas.to(torch.float32).reshape(n, num_classes, 4)
+    if with_logits:
+        return probs, deltas, logits
+    return probs, deltas
 
 
 def init_mask_head(gen: torch.Generator, num_classes: int,
@@ -68,14 +75,17 @@ def init_mask_head(gen: torch.Generator, num_classes: int,
 
 
 def apply_mask_head(params, pooled: torch.Tensor, dtype=torch.bfloat16,
+                    bn_ctx=None,
                     class_ids: torch.Tensor | None = None) -> torch.Tensor:
     """(N, pool, pool, C) -> sigmoid masks, (N, 2p, 2p) f32 for the given
-    (N,) class ids, else (N, 2p, 2p, num_classes) f32."""
+    (N,) class ids, else (N, 2p, 2p, num_classes) f32. `bn_ctx` as in
+    `nn.bn_apply`."""
     x = pooled
     for i in range(1, 5):
         x = nn.conv2d(x, params[f"mrcnn_mask_conv{i}"], padding="SAME",
                       dtype=dtype)
-        x = nn.relu(nn.bn_apply(x, params, f"mrcnn_mask_bn{i}"))
+        x = nn.relu(nn.bn_apply(x, params, f"mrcnn_mask_bn{i}",
+                                bn_ctx))
     x = nn.relu(nn.conv2d_transpose(x, params["mrcnn_mask_deconv"],
                                     stride=2, dtype=dtype))
     k = params["mrcnn_mask"]

@@ -100,9 +100,14 @@ def preprocess(images: torch.Tensor, config: MaskRCNNConfig) -> torch.Tensor:
 
 
 def backbone_fpn(params, images: torch.Tensor, config: MaskRCNNConfig,
-                 dtype: torch.dtype):
-    c2, c3, c4, c5 = resnet.apply_resnet(params, images, config.architecture,
-                                         dtype=dtype)
+                 dtype: torch.dtype, bn_ctx=None, inference: bool = True):
+    """Preprocessed images -> P2..P6. `inference=False` (training and BN
+    calibration) keeps the graph for autograd: batch-BN (`bn_ctx`) runs
+    the layers; frozen BN takes K3/K4 through their autograd Functions
+    when `config.train_fused_kernels` is set (`models/resnet.py`)."""
+    c2, c3, c4, c5 = resnet.apply_resnet(
+        params, images, config.architecture, dtype=dtype, bn_ctx=bn_ctx,
+        inference=inference, train_fused_kernels=config.train_fused_kernels)
     return fpn.apply_fpn(params, c2, c3, c4, c5, dtype=dtype)
 
 

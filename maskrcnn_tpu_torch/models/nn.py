@@ -9,7 +9,8 @@ of its result.
 
 Mixed precision as in the JAX package: parameters float32, convolutions and
 matmuls in the compute dtype with the output rounded to it, then the bias
-added in that dtype; BatchNorm (inference, eps 1e-3) in float32.
+added in that dtype; BatchNorm (eps 1e-3) in float32, with the moving
+statistics or, in training, the batch's own.
 """
 
 from __future__ import annotations
@@ -112,17 +113,44 @@ def conv2d_transpose(x: torch.Tensor, p: Params, *, stride=2,
     return y.to(dtype)
 
 
-def batch_norm(x: torch.Tensor, p: Params, *, eps: float = 1e-3):
-    """Inference BatchNormalization with the stored moving statistics
-    (Keras default eps 1e-3)."""
-    scale = p["gamma"].float() * torch.rsqrt(p["moving_variance"].float()
-                                             + eps)
-    shift = p["beta"].float() - p["moving_mean"].float() * scale
-    return (x.float() * scale + shift).to(x.dtype)
+def batch_norm(x: torch.Tensor, p: Params, *, eps: float = 1e-3,
+               use_batch_stats: bool = False, collect: dict | None = None,
+               name: str | None = None) -> torch.Tensor:
+    """BatchNormalization (Keras default eps 1e-3), in float32.
+
+    By default it normalizes with the stored moving statistics (inference,
+    and Matterport's frozen-BN fine-tuning). `use_batch_stats=True`
+    normalizes with the statistics of the current batch over every axis
+    but the last (the mean and the biased variance, as `jnp.var`): the
+    from-scratch training recipe, which never reads the moving statistics.
+    `collect` (a dict) records the batch's (mean, var) under `name`, for
+    `train/calibrate.py::calibrate_bn_stats`."""
+    xf = x.float()
+    if use_batch_stats or collect is not None:
+        axes = tuple(range(xf.dim() - 1))
+        mean = xf.mean(dim=axes)
+        var = xf.var(dim=axes, unbiased=False)
+        if collect is not None:
+            collect[name] = (mean, var)
+    if use_batch_stats:
+        use_mean, use_var = mean, var
+    else:
+        use_mean = p["moving_mean"].float()
+        use_var = p["moving_variance"].float()
+    scale = p["gamma"].float() * torch.rsqrt(use_var + eps)
+    shift = p["beta"].float() - use_mean * scale
+    return (xf * scale + shift).to(x.dtype)
 
 
-def bn_apply(x: torch.Tensor, params: Params, name: str) -> torch.Tensor:
-    return batch_norm(x, params[name])
+def bn_apply(x: torch.Tensor, params: Params, name: str,
+             bn_ctx: dict | None = None) -> torch.Tensor:
+    """BN by layer name: `bn_ctx` None (moving statistics) or
+    {"use_batch_stats": bool, "collect": dict | None}."""
+    if bn_ctx is None:
+        return batch_norm(x, params[name])
+    return batch_norm(x, params[name],
+                      use_batch_stats=bn_ctx.get("use_batch_stats", False),
+                      collect=bn_ctx.get("collect"), name=name)
 
 
 def dense(x: torch.Tensor, p: Params, *, dtype=torch.bfloat16):

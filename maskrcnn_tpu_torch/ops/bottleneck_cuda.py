@@ -14,6 +14,12 @@ bf16 values, float32 sums.
 The kernel is launched once per block, so between two blocks of a chain
 the block output makes one round trip through device memory (the TPU
 kernel kept the whole chain on chip).
+
+`ChainFusedDiff` runs the kernel under autograd (frozen-BN training with
+`train_fused_kernels`, the JAX package's `_chain_fused_diff`): the kernel
+forward, and for the backward the gradient of the blocks' layer graph
+(`models/resnet.py::_bottleneck` in bf16 with the stored BN statistics),
+recomputed: there is no backward kernel, on the TPU either.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from maskrcnn_tpu_torch.ops import cuda_lib
+from maskrcnn_tpu_torch.ops.common import graph_vjp
 
 _KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "ws", "bs")
 
@@ -134,8 +141,9 @@ def fused_bottleneck_chain(x: torch.Tensor,
 
 def chain_supported(x: torch.Tensor, dtype: torch.dtype,
                     blocks: list[dict]) -> bool:
-    """The kernel's gate (as `bottleneck_pallas.chain_supported`): bf16
-    inference on the card, and shapes every block of the chain takes."""
+    """The kernel's gate (as `bottleneck_pallas.chain_supported`): bf16 on
+    the card, and shapes every block of the chain takes (the caller adds
+    the stored-BN condition, `models/resnet.py::apply_resnet`)."""
     if dtype != torch.bfloat16 or not x.is_cuda:
         return False
     shape = tuple(x.shape)
@@ -144,3 +152,63 @@ def chain_supported(x: torch.Tensor, dtype: torch.dtype,
             return False
         shape = shape[:3] + (blk["w3"].shape[1],)
     return True
+
+
+def chain_keys(stage: int, letters: str) -> list[str]:
+    """The layers of blocks `letters` of `stage`, block by block: each
+    branch's conv, then its BN (the JAX package's `_chain_keys`)."""
+    keys = []
+    for letter in letters:
+        for branch in ("2a", "2b", "2c") + (("1",) if letter == "a" else ()):
+            keys += [f"res{stage}{letter}_branch{branch}",
+                     f"bn{stage}{letter}_branch{branch}"]
+    return keys
+
+
+def _chain_tensors(params: dict, stage: int, letters: str):
+    """(layer, weight) names and tensors of `chain_keys`, in that order,
+    each layer's weights in the params' own order."""
+    names = [(k, w) for k in chain_keys(stage, letters) for w in params[k]]
+    return names, [params[k][w] for k, w in names]
+
+
+class ChainFusedDiff(torch.autograd.Function):
+    """K4 under autograd: forward `fused_bottleneck_chain` of the folded
+    `blocks` (the kernel on a CUDA tensor, its plain version on a CPU one),
+    backward the vjp of the `_bottleneck` layers over `letters`. Takes
+    (stage, letters, names, blocks, x, *tensors): `names` the (layer,
+    weight) of each tensor, `blocks` the chain folded from them."""
+
+    @staticmethod
+    def forward(ctx, stage, letters, names, blocks, x, *flat):
+        ctx.stage, ctx.letters, ctx.names = stage, letters, names
+        ctx.save_for_backward(x, *flat)
+        return fused_bottleneck_chain(x, blocks)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from maskrcnn_tpu_torch.models.resnet import _bottleneck
+
+        def graph(x, *flat):
+            params: dict = {}
+            for (layer, w), t in zip(ctx.names, flat):
+                params.setdefault(layer, {})[w] = t
+            for letter in ctx.letters:
+                x = _bottleneck(x, params, ctx.stage, letter, letter == "a",
+                                1, torch.bfloat16)
+            return x
+
+        grads = graph_vjp(graph, ctx.saved_tensors, ctx.needs_input_grad[4:],
+                          grad.to(torch.bfloat16))
+        return (None, None, None, None, *grads)
+
+
+def chain_fused_diff(params: dict, stage: int, letters: str, x: torch.Tensor,
+                     blocks: list[dict] | None = None) -> torch.Tensor:
+    """Blocks `letters` of `stage` through `ChainFusedDiff`; `blocks` is
+    the chain folded from `params` (folded here when not given)."""
+    if blocks is None:
+        with torch.no_grad():
+            blocks = fold_bottleneck_chain(params, stage, letters)
+    names, flat = _chain_tensors(params, stage, letters)
+    return ChainFusedDiff.apply(stage, letters, names, blocks, x, *flat)

@@ -20,7 +20,7 @@ from typing import Sequence
 
 import torch
 
-from maskrcnn_tpu_torch.ops.roi_align_cuda import (roi_align,
+from maskrcnn_tpu_torch.ops.roi_align_cuda import (RoiAlignDiff, roi_align,
                                                    roi_classifier_head,
                                                    roi_mask_head)
 
@@ -97,7 +97,9 @@ def pyramid_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
     (`pack_mask_head`) and (B, N) `class_ids` it feeds the mask head (K6)
     and the result is the (B*N, 2*crop, 2*crop) float32 masks. Unlike the
     TPU kernel, the fused calls return only the head's output: the pooled
-    features are never written."""
+    features are never written. Where a feature requires grad (training),
+    the pool runs through `RoiAlignDiff`: the kernel forward, the plain
+    version's gradient."""
     b, n, _ = rois.shape
     level_hw = [(f.shape[1], f.shape[2]) for f in features]
     ys, xs, level, valid = prepare(rois.reshape(b * n, 4), level_hw,
@@ -111,5 +113,8 @@ def pyramid_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
             raise ValueError("mask_params needs class_ids")
         return roi_mask_head(features, ys, xs, level, valid, n, mask_params,
                              class_ids.reshape(b * n))
-    out = roi_align(features, ys, xs, level, valid, n)
+    if torch.is_grad_enabled() and any(f.requires_grad for f in features):
+        out = RoiAlignDiff.apply(ys, xs, level, valid, n, *features)
+    else:
+        out = roi_align(features, ys, xs, level, valid, n)
     return out.reshape(b, n, crop_size, crop_size, out.shape[-1])

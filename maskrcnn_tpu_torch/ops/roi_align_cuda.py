@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from maskrcnn_tpu_torch.ops import cuda_lib
+from maskrcnn_tpu_torch.ops.common import graph_vjp
 
 HEAD_OUT = 512  # K5 output lanes: logits [0, nc), deltas [128, 128 + 4 nc)
 MASK_CHANNELS = 256  # K6 is built for the mask head's width and pool 14
@@ -135,6 +136,32 @@ def roi_align(features: Sequence[torch.Tensor], ys: torch.Tensor,
         return roi_align_cuda([f.contiguous() for f in features], ys, xs,
                               level, valid, rois_per_image)
     return roi_align_plain(features, ys, xs, level, valid, rois_per_image)
+
+
+class RoiAlignDiff(torch.autograd.Function):
+    """K2 under autograd (training pools the sampled ROIs): forward
+    `roi_align` (the kernel on CUDA tensors, the plain version on CPU
+    ones), backward the vjp of `roi_align_plain` on the features at the
+    same positions, recomputed; no backward kernel yet. The positions
+    carry no gradient (the sampled ROIs are detached). Takes (ys, xs,
+    level, valid, rois_per_image, *features)."""
+
+    @staticmethod
+    def forward(ctx, ys, xs, level, valid, rois_per_image, *features):
+        ctx.rois_per_image = rois_per_image
+        ctx.save_for_backward(ys, xs, level, valid, *features)
+        return roi_align(features, ys, xs, level, valid, rois_per_image)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ys, xs, level, valid, *features = ctx.saved_tensors
+
+        def graph(*feats):
+            return roi_align_plain(feats, ys, xs, level, valid,
+                                   ctx.rois_per_image)
+
+        grads = graph_vjp(graph, features, ctx.needs_input_grad[5:], grad)
+        return (None,) * 5 + grads
 
 
 # --------------------------------------------------------------------------

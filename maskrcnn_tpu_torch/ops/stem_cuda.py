@@ -10,6 +10,12 @@ to bf16 at the end. The TF SAME pool pads 0 on the left and 1 on the right;
 post-ReLU values are >= 0, so the kernel's zero for the missing edge row
 and column equals the pool's -inf padding. The TPU kernel's 4x4
 space-to-depth packing is a Mosaic layout device and is not ported.
+
+`StemFusedDiff` runs the kernel under autograd (frozen-BN training with
+`train_fused_kernels`, the JAX package's `_stem_fused_diff`): the kernel
+forward, and for the backward the gradient of the layer graph
+`models/resnet.py::_stem_layers` in bf16 with the stored BN statistics,
+recomputed (there is no backward kernel, on the TPU either).
 """
 
 from __future__ import annotations
@@ -18,6 +24,12 @@ import torch
 import torch.nn.functional as F
 
 from maskrcnn_tpu_torch.ops import cuda_lib
+from maskrcnn_tpu_torch.ops.common import graph_vjp
+
+# The tensors `StemFusedDiff` takes after the images, in this order.
+STEM_TENSORS = (("conv1", "kernel"), ("conv1", "bias"),
+                ("bn_conv1", "gamma"), ("bn_conv1", "beta"),
+                ("bn_conv1", "moving_mean"), ("bn_conv1", "moving_variance"))
 
 
 def fold_stem_weights(conv1: dict, bn: dict, eps: float = 1e-3):
@@ -76,8 +88,9 @@ def stem(images: torch.Tensor, w: torch.Tensor,
 
 
 def stem_supported(images: torch.Tensor, dtype: torch.dtype) -> bool:
-    """The kernel's gate (as `stem_pallas.stem_supported`): bf16 inference
-    on the card, spatial dims divisible by 32."""
+    """The kernel's gate (as `stem_pallas.stem_supported`): bf16 on the
+    card, spatial dims divisible by 32 (the caller adds the stored-BN
+    condition, `models/resnet.py::apply_resnet`)."""
     h, w = images.shape[1], images.shape[2]
     return (dtype == torch.bfloat16 and images.is_cuda
             and h % 32 == 0 and w % 32 == 0)
@@ -88,3 +101,38 @@ def apply_stem(params: dict, images: torch.Tensor,
     """conv1 + bn_conv1 + relu + maxpool of preprocessed f32 images."""
     w, bias = fold_stem_weights(params["conv1"], params["bn_conv1"], eps)
     return stem(images.to(torch.float32), w, bias)
+
+
+def _stem_params(flat) -> dict:
+    params: dict = {}
+    for (layer, w), t in zip(STEM_TENSORS, flat):
+        params.setdefault(layer, {})[w] = t
+    return params
+
+
+def _stem_graph(images: torch.Tensor, *flat: torch.Tensor) -> torch.Tensor:
+    from maskrcnn_tpu_torch.models.resnet import _stem_layers
+    return _stem_layers(_stem_params(flat), images, torch.bfloat16)
+
+
+class StemFusedDiff(torch.autograd.Function):
+    """K3 under autograd: forward `apply_stem` (the kernel on a CUDA tensor,
+    its plain version on a CPU one), backward the vjp of `_stem_layers`.
+    Takes the images, then the `STEM_TENSORS` positionally (autograd
+    tracks only tensors passed as arguments)."""
+
+    @staticmethod
+    def forward(ctx, images, *flat):
+        ctx.save_for_backward(images, *flat)
+        return apply_stem(_stem_params(flat), images)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return graph_vjp(_stem_graph, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad.to(torch.bfloat16))
+
+
+def stem_fused_diff(params: dict, images: torch.Tensor) -> torch.Tensor:
+    """conv1 + bn_conv1 + relu + maxpool through `StemFusedDiff`."""
+    return StemFusedDiff.apply(images, *(params[layer][w]
+                                         for layer, w in STEM_TENSORS))

@@ -178,7 +178,6 @@ def test_entry_points_need_a_card_unless_asked(ws, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "t", "--synthetic", "--steps", "2"], "M8"),
     (["evaluate", "t", "coco", "--dp", "2"], "M9"),
     (["convert", "t", "--export-savedmodel", "sm"], "M11"),
     (["evaluate", "t", "coco", "--compare-tf"], "M7"),

@@ -1,5 +1,7 @@
 """Each CUDA kernel of the PyTorch port against its plain version on the
-card (marked `gpu`; each test skips with a reason where there is none).
+card, the K2/K3/K4 autograd Functions against the plain graph's gradients,
+and one full-width training step (marked `gpu`; each test skips with a
+reason where there is none).
 
 This file imports neither JAX nor the JAX package, and uses no conftest
 fixture, so it runs on a machine that has only PyTorch and the CUDA
@@ -433,3 +435,215 @@ def test_gpu_mask_head_kernel_runs_its_plan(monkeypatch, key, delta):
     torch.testing.assert_close(roi_align_cuda.roi_mask_head(*args),
                                roi_align_cuda.mask_head_plain(*args),
                                rtol=0, atol=1e-2)
+
+
+# --------------------------------------------------------------------------
+# K2, K3, K4 under autograd (training), and a full-width training step
+# --------------------------------------------------------------------------
+
+def _leaf_grads(fn, params, x, cot):
+    """fn(params, x), then the gradients of sum(out * cot) for each param
+    leaf (and x where it is a float tensor)."""
+    leaves = [(k, w) for k, d in params.items() for w in d]
+    p = {k: {w: v.detach().clone().requires_grad_(True)
+             for w, v in d.items()} for k, d in params.items()}
+    xx = x.detach().clone().requires_grad_(True)
+    out = fn(p, xx)
+    got = torch.autograd.grad((out.float() * cot.float()).sum(),
+                              [p[k][w] for k, w in leaves] + [xx])
+    return out, {**{f"{k}/{w}": g for (k, w), g in zip(leaves, got)},
+                 "x": got[-1]}
+
+
+def _assert_grads_close(got, want, frac):
+    for k, w in want.items():
+        scale = w.float().abs().max().item()
+        err = (got[k].float() - w.float()).abs().max().item()
+        assert err <= frac * scale, (k, err, scale)
+
+
+@pytest.mark.gpu
+def test_gpu_stem_function_runs_kernel_with_plain_graph_grads():
+    """`StemFusedDiff` on the card: its forward is K3 (one launch, the
+    kernel's output), its gradients those of the layer graph
+    `_stem_layers` in bf16 (cuDNN's backward accumulates in an order that
+    may change between runs: within 1% of each leaf's largest)."""
+    from maskrcnn_tpu_torch.models import resnet
+    dev = _card()
+    rng = np.random.default_rng(0)
+    sp = {k: {w: torch.from_numpy(v).to(dev) for w, v in d.items()}
+          for k, d in stem_params(rng).items()}
+    images = torch.from_numpy(rng.uniform(-124, 132, (2, 256, 256, 3))
+                              .astype(np.float32)).to(dev)
+    cot = torch.from_numpy(rng.standard_normal((2, 64, 64, 64))
+                           .astype(np.float32)).to(dev)
+    cuda_lib.reset_launches()
+    out, g_fn = _leaf_grads(stem_cuda.stem_fused_diff, sp, images, cot)
+    assert cuda_lib.launches["stem"] == 1
+    assert torch.equal(out, stem_cuda.apply_stem(sp, images))
+    _, g_pl = _leaf_grads(
+        lambda p, x: resnet._stem_layers(p, x, torch.bfloat16), sp, images,
+        cot)
+    _assert_grads_close(g_fn, g_pl, 1e-2)
+
+
+@pytest.mark.gpu
+def test_gpu_chain_function_runs_kernel_with_plain_graph_grads():
+    """`ChainFusedDiff` over res2 a-c on the card: K4 forward (one launch a
+    block), the `_bottleneck` layers' gradients."""
+    from maskrcnn_tpu_torch.models import resnet
+    dev = _card()
+    rng = np.random.default_rng(1)
+    sp = {k: {w: torch.from_numpy(v).to(dev) for w, v in d.items()}
+          for k, d in stage_params(rng, 2, 64, 64, 256, "abc",
+                                   True).items()}
+    x = torch.from_numpy(rng.standard_normal((2, 64, 64, 64))
+                         .astype(np.float32)).to(dev).to(torch.bfloat16)
+    cot = torch.from_numpy(rng.standard_normal((2, 64, 64, 256))
+                           .astype(np.float32)).to(dev)
+
+    def plain(p, xx):
+        for letter in "abc":
+            xx = resnet._bottleneck(xx, p, 2, letter, letter == "a", 1,
+                                    torch.bfloat16)
+        return xx
+
+    cuda_lib.reset_launches()
+    out, g_fn = _leaf_grads(
+        lambda p, xx: bottleneck_cuda.chain_fused_diff(p, 2, "abc", xx), sp,
+        x, cot)
+    assert cuda_lib.launches["bottleneck"] == 3
+    blocks = bottleneck_cuda.fold_bottleneck_chain(sp, 2, "abc")
+    assert torch.equal(out, bottleneck_cuda.fused_bottleneck_chain(x, blocks))
+    _, g_pl = _leaf_grads(plain, sp, x, cot)
+    _assert_grads_close(g_fn, g_pl, 1e-2)
+
+
+# the plain pool's feature gradient is an atomic scatter on the card, in
+# the features' dtype: within 1e-5 of each level's largest in float32, 2e-2
+# (a few bf16 ulps of a sum in another order) in bf16
+ROI_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("crop", [7, 14])
+def test_gpu_roi_align_function_runs_kernel_with_plain_grads(crop, dtype):
+    """`pyramid_roi_align` on features that need a gradient, at the
+    training path's 200 ROIs an image, pool 7 and 14, in float32 and in
+    bf16 (what training pools): K2 forward (bit-equal to the plain pool),
+    the plain pool's feature gradients."""
+    dev = _card()
+    rng = np.random.default_rng(2)
+    feats = [torch.from_numpy(rng.standard_normal((2, s, s, 256))
+                              .astype(np.float32)).to(dev).to(dtype)
+             for s in (256, 128, 64, 32)]
+    yx1 = rng.uniform(0, 0.7, (2, 200, 2))
+    wh = rng.uniform(0.02, 0.6, (2, 200, 2))
+    rois = np.concatenate([yx1, np.minimum(yx1 + wh, 1.0)], -1)
+    rois[:, ::9] = 0.0
+    rois = torch.from_numpy(rois.astype(np.float32)).to(dev)
+    cot = torch.from_numpy(rng.standard_normal((2, 200, crop, crop, 256))
+                           .astype(np.float32)).to(dev)
+
+    def grads(fn):
+        fs = [f.clone().requires_grad_(True) for f in feats]
+        out = fn(fs)
+        g = torch.autograd.grad((out * cot).sum(), fs, allow_unused=True)
+        return out, [torch.zeros_like(f) if x is None else x
+                     for f, x in zip(fs, g)]
+
+    def plain(fs):
+        ys, xs, level, valid = roi_align.prepare(
+            rois.reshape(-1, 4), [(f.shape[1], f.shape[2]) for f in fs],
+            (1024, 1024), 224.0, crop)
+        return roi_align_cuda.roi_align_plain(
+            fs, ys, xs, level, valid, 200).reshape(2, 200, crop, crop, 256)
+
+    cuda_lib.reset_launches()
+    out, g_fn = grads(lambda fs: roi_align.pyramid_roi_align(
+        fs, rois, crop, (1024, 1024)))
+    assert cuda_lib.launches["roi_align"] == 1
+    want, g_pl = grads(plain)
+    assert torch.equal(out, want)
+    for a, b in zip(g_fn, g_pl):
+        scale = b.float().abs().max().item()
+        assert scale > 0
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=0,
+            atol=ROI_GRAD_TOL[dtype] * scale)
+
+
+def _live_bn(params, gen):
+    """Every BN's parameters drawn from the seed (random init zeroes each
+    block's last gamma, which makes every branch2a/2b kernel's gradient
+    exactly zero)."""
+    for w in params.values():
+        if "moving_variance" in w:
+            c = w["gamma"].shape[0]
+            u = lambda lo, hi: torch.rand(c, generator=gen) * (hi - lo) + lo
+            w["gamma"], w["beta"] = u(0.3, 0.8), u(-0.2, 0.2)
+            w["moving_mean"], w["moving_variance"] = u(-0.2, 0.2), u(0.5, 2.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frozen", [False, True], ids=["batch_bn",
+                                                       "frozen_bn_fused"])
+def test_gpu_full_width_train_step(frozen):
+    """One training step at R101-FPN @ 1024^2, 81 classes, bf16, batch 1:
+    finite losses, a nonzero gradient for every conv and dense kernel
+    (conv1 and res2/res3 behind K3 and K4, the FPN behind K2), K1 and K2
+    launched, K3 and K4 only with frozen BN + `train_fused_kernels`; with
+    batch BN a nonzero gradient for every BN gamma and beta and none for
+    the moving statistics, with frozen BN no gradient for any BN tensor
+    and none changed by the update."""
+    from maskrcnn_tpu_torch.core.anchors import generate_anchors
+    from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
+    from maskrcnn_tpu_torch.models.mask_rcnn import (init_mask_rcnn,
+                                                     params_to)
+    from maskrcnn_tpu_torch.train.data import synthetic_train_batch
+    from maskrcnn_tpu_torch.train import step as train
+    dev = _card()
+    cfg = MaskRCNNConfig(train_bn="frozen" if frozen else "batch",
+                         train_fused_kernels=frozen)
+    gen = torch.Generator().manual_seed(0)
+    params = init_mask_rcnn(gen, cfg)
+    _live_bn(params, gen)
+    state, opt = train.make_train_state(params_to(params, dev), cfg)
+    batch = synthetic_train_batch(cfg, 1, dev)
+    anchors = torch.from_numpy(generate_anchors(cfg)).to(dev)
+    cuda_lib.reset_launches()
+    grads, metrics = train.compute_gradients(state, batch, anchors, cfg, opt)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    assert all(torch.isfinite(v) for v in metrics.values()), metrics
+    zero = [layer for layer, ws in state.params.items() if "kernel" in ws
+            and not grads[layer]["kernel"].abs().max().item() > 0]
+    assert not zero, zero
+    assert launches["nms"] >= 1 and launches["roi_align"] == 2
+    if frozen:
+        assert launches["stem"] == 1 and launches["bottleneck"] == 6
+    else:
+        assert launches["stem"] == 0 and launches["bottleneck"] == 0
+    for layer, ws in state.params.items():
+        if "moving_variance" not in ws:
+            continue
+        got = grads.get(layer, {})
+        if frozen:
+            # make_optimizer masks the whole BN layer
+            assert all(got.get(w) is None for w in ws), layer
+        else:
+            for w in ("gamma", "beta"):
+                assert got[w] is not None and got[w].abs().max().item() > 0, \
+                    (layer, w)
+            for w in ("moving_mean", "moving_variance"):
+                assert got.get(w) is None or not got[w].any(), (layer, w)
+    new = train.apply_gradients(state, grads, opt)
+    for layer, ws in state.params.items():
+        if "moving_variance" in ws:
+            for w, v in ws.items():
+                # frozen BN stays whole; batch BN never reads (nor moves)
+                # the moving statistics
+                if frozen or w.startswith("moving"):
+                    assert torch.equal(new.params[layer][w], v), (layer, w)

@@ -47,9 +47,12 @@ def _port_modules():
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
-    """Every module of the port, the CLI and evalkit included; `h5py` too
-    stays unloaded (the `.h5` functions import it, and the card's machine
-    may lack it)."""
+    """Every module of the port, the CLI, evalkit and training included;
+    `h5py` too stays unloaded (the `.h5` functions import it, and the
+    card's machine may lack it)."""
+    assert {f"maskrcnn_tpu_torch.train.{m}" for m in (
+        "targets", "losses", "step", "calibrate", "checkpoint",
+        "data")} <= set(_port_modules())
     code = ("import sys\n"
             f"for m in {_port_modules()!r}:\n"
             "    __import__(m)\n"
