@@ -73,8 +73,34 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            with both fused heads (K5 and K6 once per forward), `train
            --synthetic --steps 3 --state --output` (a calibrated .npz) and
            then `--resume --steps 5` (to step 5; K1, K2)
+  mnv2     MobileNetV2-FPN @ 1024^2, 81 classes, bf16, random weights
+           from the seed with live BN: `detect_images` over the e2e images
+           at the default and the zero score threshold (a main path, K1 and
+           K2, never K3 or K4), the forward's time and profile,
+           `run_stream` with both fused heads over 8 frames (a main path:
+           K5 and K6 once a forward), batch-BN `train_step` (1 warm-up, 3
+           timed: a main path, K1 and K2)
+  export   `io/export.py`: the R101-FPN @ 1024^2 forward exported on the
+           card at batch 1 (trace seconds, program bytes), reloaded in this
+           process (a main path: K1-K4) and in a new one, each within 1e-4
+           of the eager forward with `valid` equal; the program's forward
+           time beside the eager one's
+  dp       `MaskRCNNDetector(data_parallel=-1)` over the cards present
+           against one device, bit for bit (4 float32 images, odd uint8
+           batch; a main path); the DP train step over NCCL at world 1
+           against `train_step` (float32, frozen BN; bounds of
+           `tests/test_parallel.py`'s n = 1); gloo at world 2 on the one
+           card (two spawned ranks, one image each, R101 @ 1024^2 bf16):
+           frozen and batch BN steps against one process's step on both
+           images (loss 5e-2 relative, params 1e-4), and the batch-BN
+           statistics at three layers against one process's over the
+           gathered inputs (1e-5 relative)
+  custom_op_dispatch  the e2e forward's wall ms and device launches with
+           every kernel called through its custom op, beside the same
+           forward's numbers before the ops
   bench    `maskrcnn_tpu_torch.tools.bench` at --batch, 10 iterations,
-           with `--fuse none` and `--fuse both`, then `--mode train` with
+           with `--fuse none`, `--fuse both` and `--arch mobilenetv2`,
+           then `--mode train` with
            batch BN and with frozen BN + `--train-fused-kernels` (1 warm-up
            and 2 timed steps: that it runs, launches and exits 0; the train
            phase has the times); its JSON lines
@@ -719,6 +745,22 @@ def profile_call(fn) -> dict:
             "top": [[k[:90], ms, n] for k, ms, n in rows[:15]]}
 
 
+def e2e_images(rng):
+    """The 4 uint8 images of mixed sizes `detect_images` gets."""
+    return [rng.integers(0, 256, s, dtype=np.uint8)
+            for s in ((480, 640, 3), (800, 600, 3), (1024, 1024, 3),
+                      (300, 900, 3))]
+
+
+def timed_detect(detector, images, batch):
+    """`detect_images` in batches of `batch`, and its wall ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = detector.detect_images(images, batch_size=batch)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
 def e2e(dev, seed, batch):
     from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
     from maskrcnn_tpu_torch.models import mask_rcnn as M
@@ -732,16 +774,10 @@ def e2e(dev, seed, batch):
     low = MaskRCNNDetector(cfg.replace(detection_score_threshold=0.0),
                            det.params, device=dev)
     rng = np.random.default_rng(seed)
-    images = [rng.integers(0, 256, s, dtype=np.uint8)
-              for s in ((480, 640, 3), (800, 600, 3), (1024, 1024, 3),
-                        (300, 900, 3))]
+    images = e2e_images(rng)
 
     def timed(detector):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = detector.detect_images(images, batch_size=batch)
-        torch.cuda.synchronize()
-        return res, (time.perf_counter() - t0) * 1e3
+        return timed_detect(detector, images, batch)
 
     det.detect_images(images[:batch], batch_size=batch)        # warm-up
     cuda_lib.reset_launches()
@@ -781,6 +817,16 @@ def e2e(dev, seed, batch):
           "max_memory_allocated_bytes": peak, "finite": finite,
           "profile": profile,
           "launches_default": launches_default, "launches": launches})
+    # every kernel call of this forward goes through its custom op
+    # (`maskrcnn_tpu_torch::*`); before the ops the same forward took
+    # 41.6-44.5 ms and 2051 device launches on the same card (PERF.md)
+    emit({"phase": "custom_op_dispatch", "forward_batch_ms": lat,
+          "device_launches": profile["launches"],
+          "kernel_calls_per_forward": {k: v * batch / len(images)
+                                       for k, v in launches.items()},
+          "before_ops_forward_batch_ms": [41.6, 44.5],
+          "before_ops_device_launches": 2051,
+          "before_ops_card": "NVIDIA H100 80GB HBM3, 700.00 W"})
     if not (all(finite.values()) and masks_ok and boxes_ok):
         raise AssertionError("non-finite or malformed detector output")
     if min(n_low) != cfg.max_detections:
@@ -1580,6 +1626,531 @@ def cli(dev, seed, batch, base):
             "cli_train": l_train}
 
 
+# --------------------------------------------------------------------------
+# MobileNetV2-FPN, export, data parallel
+# --------------------------------------------------------------------------
+
+MNV2_KERNELS = ("nms", "roi_align")
+RESNET_ONLY = ("stem", "bottleneck")
+
+
+def mnv2(dev, seed, batch, base, frames=8, timed_steps=3):
+    """MobileNetV2-FPN @ 1024^2, 81 classes, bf16, random weights from the
+    seed with live BN: `detect_images` over the e2e images at the default
+    and the zero score threshold (K1, K2; never K3 or K4, ResNet's), the
+    forward's time and profile, `run_stream` with both fused heads over
+    `frames` frames (K5 and K6 once a forward), and batch-BN `train_step`
+    (1 warm-up, `timed_steps` timed). Each of the three runs is a main
+    path: counts zeroed just before, read just after."""
+    from maskrcnn_tpu_torch.core.anchors import generate_anchors
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.ops import cuda_lib
+    from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
+    from maskrcnn_tpu_torch.pipeline.stream import (run_stream,
+                                                    synthetic_frames)
+    from maskrcnn_tpu_torch.train import step as T
+    from maskrcnn_tpu_torch.train.data import synthetic_train_batch
+    cfg = base.replace(architecture="mobilenetv2")
+    gen = torch.Generator().manual_seed(seed)
+    params = M.init_mask_rcnn(gen, cfg)
+    live_bn(params, gen)
+    det = MaskRCNNDetector(cfg, params, device=dev)
+    low = MaskRCNNDetector(cfg.replace(detection_score_threshold=0.0),
+                           det.params, device=dev)
+    images = e2e_images(np.random.default_rng(seed))
+    det.detect_images(images[:batch], batch_size=batch)        # warm-up
+    cuda_lib.reset_launches()
+    res_default, ms_default = timed_detect(det, images, batch)
+    launches_default = dict(cuda_lib.launches)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    res_low, ms_low = timed_detect(low, images, batch)         # main path
+    launches = dict(cuda_lib.launches)
+    peak = torch.cuda.max_memory_allocated()
+    size = cfg.image_height
+    canvases = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0, 255, (batch, size, size, 3)).astype(np.float32))
+    lat = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = low.run_batch(canvases)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    profile = profile_forward(low, canvases)
+    finite = all(bool(torch.isfinite(out[k].float()).all())
+                 for k in ("detections", "masks", "rois"))
+    n_low = [len(r) for r in res_low]
+
+    fused = MaskRCNNDetector(cfg.replace(
+        fuse_classifier_head=True, fuse_mask_head=True,
+        detection_score_threshold=0.0), det.params, device=dev)
+    fused.run_batch(np.stack(list(synthetic_frames(batch, size, seed + 1))),
+                    paste_size=size)                           # warm-up
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    stats = run_stream(fused, synthetic_frames(frames, size, seed),
+                       micro_batch=batch, paste_size=size,
+                       latency_probes=2, sync_every=4)         # main path
+    torch.cuda.synchronize()
+    launches_stream = dict(cuda_lib.launches)
+    forwards = -(-frames // batch) + stats.latency_probes
+    del fused, det
+
+    tcfg = cfg                                   # train_bn "batch" default
+    state, opt = T.make_train_state(low.params, tcfg)
+    data = synthetic_train_batch(tcfg, batch, dev, seed=seed + 1)
+    anchors = torch.from_numpy(generate_anchors(tcfg)).to(dev)
+    state, _ = T.train_step(state, data, anchors, tcfg, opt, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    times, losses = [], []
+    for _ in range(timed_steps):                               # main path
+        t0 = time.perf_counter()
+        state, m = T.train_step(state, data, anchors, tcfg, opt, seed=seed)
+        losses.append({k: float(v) for k, v in m.items()})
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches_train = dict(cuda_lib.launches)
+    train_peak = torch.cuda.max_memory_allocated()
+    del state, opt, data
+    emit({"phase": "mnv2", "config": describe(cfg), "batch_size": batch,
+          "detect_images_ms": {"default_thresholds": ms_default,
+                               "score_threshold_0": ms_low},
+          "forward_batch_ms": lat,
+          "detections_default": [len(r) for r in res_default],
+          "detections_score_threshold_0": n_low,
+          "max_memory_allocated_bytes": peak, "finite": finite,
+          "profile": profile, "launches_default": launches_default,
+          "launches": launches,
+          "stream": {"frames": stats.frames, "fps": stats.fps,
+                     "p50_latency_ms": stats.p50_latency_ms,
+                     "p95_latency_ms": stats.p95_latency_ms,
+                     "forwards": forwards, "launches": launches_stream},
+          "train_batch_bn": {"step_ms": times,
+                             "step_ms_p50": float(np.median(times)),
+                             "images_per_s": batch / np.median(times) * 1e3,
+                             "max_memory_allocated_bytes": train_peak,
+                             "losses_last": losses[-1],
+                             "launches_per_step": {
+                                 k: v / timed_steps
+                                 for k, v in launches_train.items()}}})
+    problems = []
+    if not finite or min(n_low) != cfg.max_detections:
+        problems.append(f"finite {finite}, detections {n_low}")
+    for name, got, want, never in (
+            ("detect", launches, MNV2_KERNELS, RESNET_ONLY),
+            ("stream", launches_stream,
+             ("nms", "roi_classifier_head", "roi_mask_head"),
+             RESNET_ONLY + ("roi_align",)),
+            ("train", launches_train, MNV2_KERNELS, RESNET_ONLY)):
+        missing = [k for k in want if got[k] == 0]
+        extra = [k for k in never if got[k]]
+        if missing or extra:
+            problems.append(f"{name} launched {got}: missing {missing}, "
+                            f"unexpected {extra}")
+    for k in ("roi_classifier_head", "roi_mask_head"):
+        if launches_stream[k] != forwards:
+            problems.append(f"{k} launched {launches_stream[k]} times in "
+                            f"{forwards} forwards")
+    if not all(np.isfinite(v) for row in losses for v in row.values()):
+        problems.append(f"non-finite training loss {losses}")
+    if problems:
+        raise AssertionError(f"mnv2: {problems}")
+    return {"mnv2": launches, "mnv2_stream": launches_stream,
+            "mnv2_train": launches_train}
+
+
+EXPORT_TOL = 1e-4
+EXPORT_KERNELS = ("nms", "roi_align", "stem", "bottleneck")
+# loads the program in a new process (only the ops registered, as a user
+# would) and runs it on the saved image: outputs and launch counts to files
+FRESH_PROCESS = """
+import json, sys, time
+import numpy as np, torch
+import maskrcnn_tpu_torch.ops
+from maskrcnn_tpu_torch.ops import cuda_lib
+d = sys.argv[1]
+t0 = time.perf_counter()
+program = torch.export.load(d + "/model.pt2").module()
+load_s = time.perf_counter() - t0
+images = torch.from_numpy(np.load(d + "/images.npy")).to(sys.argv[2])
+cuda_lib.reset_launches()
+with torch.no_grad():
+    out = program(images)
+if images.is_cuda:
+    torch.cuda.synchronize()
+np.savez(d + "/fresh.npz", **{k: v.float().cpu().numpy()
+                              for k, v in out.items()})
+print(json.dumps({"load_s": load_s, "launches": dict(cuda_lib.launches),
+                  "jax_loaded": sorted(m for m in sys.modules
+                                       if m.split(".")[0] in
+                                       ("jax", "maskrcnn_tpu"))}))
+"""
+
+
+def export_phase(dev, seed, base):
+    """`io/export.py` at R101-FPN @ 1024^2, 81 classes, bf16, batch 1 on
+    the card: the trace, the saved program's size, then the program
+    reloaded in this process (counts zeroed just before its forward, read
+    just after: it must launch K1-K4) and in a new one, each against the
+    eager forward on one image (max |diff| <= EXPORT_TOL, `valid` equal),
+    and the reloaded program's forward time beside the eager one's."""
+    import os
+    import tempfile
+    from maskrcnn_tpu_torch.io import export
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.ops import cuda_lib
+    cfg = base
+    gen = torch.Generator().manual_seed(seed)
+    params = M.init_mask_rcnn(gen, cfg)
+    live_bn(params, gen)
+    params = M.params_to(params, dev)
+    size = cfg.image_height
+    images = np.random.default_rng(seed).uniform(
+        0, 255, (1, size, size, 3)).astype(np.float32)
+    x = torch.from_numpy(images).to(dev)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        export.export_program(params, cfg, d, batch=1, device=dev)
+        trace_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(d, export.PROGRAM))
+        np.save(os.path.join(d, "images.npy"), images)
+        # the new process loads the program while this one does the same
+        t_fresh = time.perf_counter()
+        fresh_proc = subprocess.Popen(
+            [sys.executable, "-c", FRESH_PROCESS, d, str(dev)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            t0 = time.perf_counter()
+            program = export.load_program(d)
+            load_s = time.perf_counter() - t0
+            with torch.no_grad():
+                program(x)                                    # warm-up
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            with torch.no_grad():
+                got = program(x)                              # main path
+            torch.cuda.synchronize()
+            launches = dict(cuda_lib.launches)
+            want = M.forward(params, x, cfg, device=dev)
+            # timed once the new process is done: no neighbour on the host
+            stdout, stderr = fresh_proc.communicate(timeout=600)
+            fresh_s = time.perf_counter() - t_fresh
+
+            def ms(fn):
+                out = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with torch.no_grad():
+                        fn(x)
+                    torch.cuda.synchronize()
+                    out.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            program_ms = ms(program)
+            eager_ms = ms(lambda im: M.forward(params, im, cfg, device=dev))
+        finally:
+            if fresh_proc.poll() is None:
+                fresh_proc.kill()
+                fresh_proc.wait()
+        if fresh_proc.returncode != 0:
+            raise AssertionError(f"export: the program did not run in a new "
+                                 f"process:\n{stderr[-3000:]}")
+        fresh = json.loads(stdout.strip().splitlines()[-1])
+        with np.load(os.path.join(d, "fresh.npz")) as z:
+            fresh_out = {k: z[k] for k in z.files}
+
+    def diff(a, b):
+        return {k: float(np.abs(np.asarray(a[k], np.float32)
+                                - b[k].float().cpu().numpy()).max())
+                for k in ("detections", "masks", "valid")}
+
+    err = diff({k: v.float().cpu().numpy() for k, v in got.items()}, want)
+    err_fresh = diff(fresh_out, want)
+    row = {"phase": "export", "config": describe(cfg) + ", batch 1",
+           "trace_s": trace_s, "program_bytes": size, "load_s": load_s,
+           "program_forward_ms": program_ms, "eager_forward_ms": eager_ms,
+           "max_abs_diff": err, "fresh_process": {
+               "seconds": fresh_s, "load_s": fresh["load_s"],
+               "max_abs_diff": err_fresh, "launches": fresh["launches"],
+               "jax_loaded": fresh["jax_loaded"]},
+           "detections": int(want["valid"].sum()), "tol": EXPORT_TOL,
+           "launches": launches}
+    emit(row)
+    problems = []
+    for where, e, n in (("reloaded", err, launches),
+                        ("new process", err_fresh, fresh["launches"])):
+        if max(e.values()) > EXPORT_TOL:
+            problems.append(f"{where}: max |diff| {e}")
+        missing = [k for k in EXPORT_KERNELS if n[k] == 0]
+        if missing:
+            problems.append(f"{where}: never launched {missing}")
+    if fresh["jax_loaded"]:
+        problems.append(f"new process loaded {fresh['jax_loaded']}")
+    if problems:
+        raise AssertionError(f"export: {problems}")
+    return {"export": launches}
+
+
+BN_LAYERS = ("bn_conv1", "bn3a_branch2a", "bn5c_branch2c")
+DP_LOSS_RTOL, DP_PARAM_ATOL = 5e-2, 1e-4   # `parallel/mesh.py::dryrun_step`
+
+
+def _train_setup(cfg, seed, dev, batch):
+    from maskrcnn_tpu_torch.core.anchors import generate_anchors
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.train import step as T
+    from maskrcnn_tpu_torch.train.data import synthetic_train_batch
+    gen = torch.Generator().manual_seed(seed)
+    params = M.init_mask_rcnn(gen, cfg)
+    live_bn(params, gen)
+    state, opt = T.make_train_state(M.params_to(params, dev), cfg)
+    data = synthetic_train_batch(cfg, batch, dev, seed=seed + 1)
+    anchors = torch.from_numpy(generate_anchors(cfg)).to(dev)
+    return state, opt, data, anchors
+
+
+def _state_delta(a, b) -> float:
+    return max(float((a[k][w] - b[k][w]).abs().max())
+               for k in a for w in a[k])
+
+
+def _allclose_ratio(a, b, rtol, atol) -> float:
+    """max over the leaves of |a - b| / (atol + rtol |b|): at most 1 where
+    `np.testing.assert_allclose(a, b, rtol, atol)` passes."""
+    return max(float(((a[k][w] - b[k][w]).abs()
+                      / (atol + rtol * b[k][w].abs())).max())
+               for k in a for w in a[k])
+
+
+def _dp_gloo_rank(rank, world, store, seed, out, device, base):
+    """One rank of the gloo world on the one card: a frozen-BN DP step on
+    this rank's image (rank 0 then runs the single-process step on both),
+    then the batch-BN statistics inside `replicas` at BN_LAYERS against
+    one process's over the gathered inputs, and one batch-BN DP step."""
+    import torch.distributed as dist
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.models import nn
+    from maskrcnn_tpu_torch.parallel import mesh, replica
+    from maskrcnn_tpu_torch.train import step as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        res, state = {}, None
+        for mode in ("frozen", "batch"):
+            cfg = base.replace(train_bn=mode)
+            if state is None:
+                state, opt, data, anchors = _train_setup(cfg, seed, dev,
+                                                         world)
+                mesh.broadcast_state(state)
+            else:
+                state, opt = T.make_train_state(state.params, cfg)
+            shard = {k: v[rank:rank + 1] for k, v in data.items()}
+            step = mesh.data_parallel_train_step(cfg, opt)
+            step_ms = []
+            for _ in range(2):          # from the same state: the first warms
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new, m = step(state, shard, anchors, seed=seed)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            loss = float(m["loss"])
+            if rank == 0:
+                single, sm = T.train_step(state, data, anchors, cfg, opt,
+                                          seed=seed)
+                res[mode] = {"loss": loss, "single_loss": float(sm["loss"]),
+                             "param_delta": _state_delta(new.params,
+                                                         single.params),
+                             "step_ms": step_ms}
+                del single
+            if mode == "batch":
+                seen, stats = {}, {}
+                orig = nn.batch_norm
+
+                def spy(x, p, **kw):
+                    if kw.get("name") in BN_LAYERS:
+                        seen[kw["name"]] = x.detach().float()
+                    return orig(x, p, **kw)
+
+                nn.batch_norm = spy
+                try:
+                    with torch.no_grad(), replica.replicas():
+                        M.backbone_fpn(
+                            state.params, M.preprocess(shard["images"], cfg),
+                            cfg, torch.bfloat16, inference=False,
+                            bn_ctx={"use_batch_stats": True,
+                                    "collect": stats})
+                finally:
+                    nn.batch_norm = orig
+                rel = {}
+                for name in BN_LAYERS:
+                    parts = [torch.empty_like(seen[name])
+                             for _ in range(world)]
+                    dist.all_gather(parts, seen[name])
+                    xs = torch.cat(parts).reshape(-1, parts[0].shape[-1])
+                    want = (xs.mean(0), xs.var(0, unbiased=False))
+                    rel[name] = max(float(((g - w).abs() / w.abs().clamp_min(
+                        1e-6)).max()) for g, w in zip(stats[name], want))
+                if rank == 0:
+                    res["bn_stats_rel_err"] = rel
+            del new
+            torch.cuda.empty_cache()
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp(dev, seed, batch, base):
+    """Data parallel on the one card: (a) `MaskRCNNDetector(data_parallel=
+    -1)` against the single-device detector, bit for bit, on 4 float32
+    canvases and an odd uint8 batch of 3 (the padding path; the
+    DP run is a main path, counted); (b) the DP train step over NCCL,
+    world 1, against `train_step` (float32, frozen BN, exact sampling:
+    `tests/test_parallel.py`'s n = 1 bounds); (c) gloo, world 2 on the one
+    card, one image a rank (`_dp_gloo_rank`), started first so that it
+    runs beside (a) and (b)."""
+    import os
+    import tempfile
+    import torch.multiprocessing as mp
+    gloo_dir = tempfile.TemporaryDirectory()
+    gloo_out = os.path.join(gloo_dir.name, "rank0.json")
+    t_gloo = time.perf_counter()
+    ranks = mp.spawn(_dp_gloo_rank, args=(
+        2, os.path.join(gloo_dir.name, "store"), seed, gloo_out, str(dev),
+        base), nprocs=2, join=False)
+    try:
+        launches, equal, nccl, launches_nccl = _dp_one_process(
+            dev, seed, batch, base)
+        while not ranks.join():
+            pass
+    finally:
+        for proc in ranks.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    gloo_s = time.perf_counter() - t_gloo
+    with open(gloo_out) as f:
+        gloo = json.load(f)
+    gloo_dir.cleanup()
+    emit({"phase": "dp", "devices": torch.cuda.device_count(),
+          "detector_equal": {"float32_batch_4": equal[0], "uint8_batch_3":
+                             equal[1]}, "launches": launches,
+          "nccl_world_1": nccl, "nccl_launches": launches_nccl,
+          "gloo_world_2": gloo, "gloo_seconds": gloo_s,
+          "bounds": {"nccl": "each *_ratio <= 1: losses rtol 1e-6 atol "
+                     "1e-6, params and momentum rtol 1e-5 atol 1e-6 "
+                     "(tests/test_parallel.py, n = 1)",
+                     "gloo": f"loss rtol {DP_LOSS_RTOL}; frozen BN params "
+                     f"atol {DP_PARAM_ATOL}; batch BN statistics 1e-5 "
+                     "relative (its params are recorded: batch statistics "
+                     "carry bf16 rounding flips through every layer)"}})
+    problems = []
+    if not all(equal):
+        problems.append(f"DP detector differs from one device: {equal}")
+    if max(nccl["loss_ratio"], nccl["param_ratio"],
+           nccl["momentum_ratio"]) > 1:
+        problems.append(f"NCCL world 1: {nccl}")
+    for mode in ("frozen", "batch"):
+        g = gloo[mode]
+        if not (abs(g["loss"] - g["single_loss"])
+                < DP_LOSS_RTOL * max(1.0, abs(g["single_loss"]))
+                and (mode == "batch" or g["param_delta"] < DP_PARAM_ATOL)):
+            problems.append(f"gloo world 2, {mode} BN: {g}")
+    if max(gloo["bn_stats_rel_err"].values()) > 1e-5:
+        problems.append(f"BN statistics: {gloo['bn_stats_rel_err']}")
+    missing = [k for k in EXPORT_KERNELS if launches[k] == 0]
+    if missing:
+        problems.append(f"DP detector never launched {missing}")
+    if problems:
+        raise AssertionError(f"dp: {problems}")
+    return {"dp": launches, "dp_train_nccl": launches_nccl}
+
+
+def _dp_one_process(dev, seed, batch, base):
+    """(a) and (b) of `dp`: (launches of the DP detector's run, [float32
+    equal, uint8 equal], the NCCL comparison, the DP step's launches)."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.ops import cuda_lib
+    from maskrcnn_tpu_torch.parallel import mesh
+    from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
+    from maskrcnn_tpu_torch.train import step as T
+    cfg = base.replace(detection_score_threshold=0.0)
+    gen = torch.Generator().manual_seed(seed)
+    params = M.init_mask_rcnn(gen, cfg)
+    live_bn(params, gen)
+    one = MaskRCNNDetector(cfg, params, device=dev)
+    many = MaskRCNNDetector(cfg, one.params, device=dev, data_parallel=-1)
+    rng = np.random.default_rng(seed)
+    hw = (cfg.image_height, cfg.image_width, 3)
+    batches = [rng.uniform(0, 255, (4, *hw)).astype(np.float32),
+               rng.integers(0, 256, (3, *hw), dtype=np.uint8)]
+    many.run_batch(batches[0])                                # warm-up
+    torch.cuda.synchronize()
+    equal, launches = [], None
+    for images in batches:
+        want = one.run_batch(images)
+        cuda_lib.reset_launches()
+        got = many.run_batch(images)                          # main path
+        torch.cuda.synchronize()
+        launches = launches or dict(cuda_lib.launches)
+        equal.append(sorted(got) == sorted(want) and all(
+            torch.equal(got[k], want[k]) for k in want))
+    del one, many
+    torch.cuda.empty_cache()
+
+    # atomics in some backward kernels add in another order each run:
+    # the deterministic algorithms where PyTorch has one
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    tcfg = base.replace(compute_dtype="float32", train_bn="frozen",
+                        train_sampling_topk="exact")
+    state, opt, data, anchors = _train_setup(tcfg, seed, dev, batch)
+    single, sm = T.train_step(state, data, anchors, tcfg, opt, seed=seed)
+    with tempfile.TemporaryDirectory() as d:
+        store = dist.FileStore(os.path.join(d, "store"), 1)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=store, rank=0, world_size=1)
+        try:
+            cuda_lib.reset_launches()
+            new, m = mesh.data_parallel_train_step(tcfg, opt)(
+                state, data, anchors, seed=seed)              # main path
+            torch.cuda.synchronize()
+            launches_nccl = dict(cuda_lib.launches)
+        finally:
+            dist.destroy_process_group()
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    # `tests/test_parallel.py`, n = 1: losses rtol 1e-6, params and
+    # momentum rtol 1e-5 + atol 1e-6
+    nccl = {"loss_ratio": max(abs(float(m[k]) - float(sm[k]))
+                              / (1e-6 + 1e-6 * abs(float(sm[k])))
+                              for k in sm),
+            "param_ratio": _allclose_ratio(new.params, single.params, 1e-5,
+                                           1e-6),
+            "momentum_ratio": _allclose_ratio(new.momentum, single.momentum,
+                                              1e-5, 1e-6),
+            "param_delta": _state_delta(new.params, single.params),
+            "momentum_delta": _state_delta(new.momentum, single.momentum)}
+    del state, opt, data, single, new
+    torch.cuda.empty_cache()
+    return launches, equal, nccl, launches_nccl
+
+
 def bench(batch):
     """`maskrcnn_tpu_torch.tools.bench` with the unfused and the fused
     heads, then `--mode train` in both training configurations; its JSON
@@ -1589,28 +2160,32 @@ def bench(batch):
     from maskrcnn_tpu_torch.ops import cuda_lib
     from maskrcnn_tpu_torch.tools import bench as bench_tool
     launches = {}
-    for fuse, want in (("none", ("roi_align",)),
-                       ("both", ("roi_classifier_head", "roi_mask_head"))):
+    for key, flags, want in (
+            ("none", ["--fuse", "none"],
+             ("roi_align", "stem", "nms", "bottleneck")),
+            ("both", ["--fuse", "both"],
+             ("roi_classifier_head", "roi_mask_head", "stem", "nms",
+              "bottleneck")),
+            ("mobilenetv2", ["--fuse", "none", "--arch", "mobilenetv2"],
+             ("roi_align", "nms"))):
         buf = io.StringIO()
         cuda_lib.reset_launches()
         with contextlib.redirect_stdout(buf):
             rc = bench_tool.main(["--batch", str(batch), "--iters", "10",
-                                  "--warmup", "3", "--fuse", fuse])
-        launches[f"bench_{fuse}"] = dict(cuda_lib.launches)
+                                  "--warmup", "3"] + flags)
+        launches[f"bench_{key}"] = dict(cuda_lib.launches)
         if rc != 0:
-            raise AssertionError(f"bench --fuse {fuse} exited {rc}")
+            raise AssertionError(f"bench {flags} exited {rc}")
         line = buf.getvalue().strip().splitlines()[-1]
         print(line, flush=True)
         result = json.loads(line)
-        emit({"phase": f"bench_{fuse}", "launches": launches[f"bench_{fuse}"],
+        emit({"phase": f"bench_{key}", "launches": launches[f"bench_{key}"],
               "result": result})
         if not (result["value"] > 0 and np.isfinite(result["p99_ms"])):
-            raise AssertionError(f"bench --fuse {fuse}: {result}")
-        missing = [k for k in want + ("stem", "nms", "bottleneck")
-                   if launches[f"bench_{fuse}"][k] == 0]
+            raise AssertionError(f"bench {flags}: {result}")
+        missing = [k for k in want if launches[f"bench_{key}"][k] == 0]
         if missing:
-            raise AssertionError(f"bench --fuse {fuse} never launched "
-                                 f"{missing}")
+            raise AssertionError(f"bench {flags} never launched {missing}")
         torch.cuda.empty_cache()
     for name, flags, want in (
             ("batch_bn", ["--train-bn", "batch"], ("nms", "roi_align")),
@@ -1692,11 +2267,17 @@ def main() -> int:
     launches_stream = stream(dev, args.seed, args.batch)
     torch.cuda.empty_cache()
     by_path = {"e2e": launches, "stream": launches_stream}
+    full = MaskRCNNConfig()            # R101-FPN @ 1024^2, 81 classes, bf16
+    by_path.update(mnv2(dev, args.seed, args.batch, full))
+    torch.cuda.empty_cache()
+    by_path.update(export_phase(dev, args.seed, full))
+    torch.cuda.empty_cache()
+    by_path.update(dp(dev, args.seed, args.batch, full))
+    torch.cuda.empty_cache()
     train_paths, train_per_step, train_grads = train(dev, args.seed,
                                                      args.batch)
     by_path.update(train_paths)
     torch.cuda.empty_cache()
-    full = MaskRCNNConfig()            # R101-FPN @ 1024^2, 81 classes, bf16
     by_path["serve"] = serve(dev, args.seed, args.batch, full)
     torch.cuda.empty_cache()
     by_path.update(cli(dev, args.seed, args.batch, full))

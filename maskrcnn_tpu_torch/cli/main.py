@@ -10,10 +10,11 @@
     python -m maskrcnn_tpu_torch.cli download <name> [--url URL]
 
 Every subcommand that runs the model runs it on the card; `--device cpu`
-asks for the plain PyTorch path on the CPU instead. Not ported yet, each
-exiting non-zero with the ROADMAP.md item that will port it:
-`evaluate --dp` (M9), `convert --export-savedmodel` (M11) and
-`evaluate --compare-tf` (the JAX package's TF oracle, not ported).
+asks for the plain PyTorch path on the CPU instead. `convert
+--export-savedmodel DIR` writes a `torch.export` program (`io/export.py`)
+where the JAX package writes a TF SavedModel; `evaluate --dp N` splits each
+batch over N devices of `--device`'s kind. Not ported, exiting non-zero:
+`evaluate --compare-tf` (the JAX package's TF oracle).
 
 Artifacts live under `$MASKRCNN_HOME/models/<name>/` (default
 `.maskrcnn/`): inputs `config.json` + `weights.h5`, outputs in `products/`
@@ -29,10 +30,6 @@ import sys
 import time
 
 _NOT_PORTED = {
-    "dp": "evaluate --dp (data parallel) is not ported yet "
-          "(ROADMAP.md Queue 1, M9)",
-    "export_savedmodel": "convert --export-savedmodel is not ported yet "
-                         "(ROADMAP.md Queue 1, M11: a torch.export program)",
     "compare_tf": "evaluate --compare-tf runs the JAX package's TensorFlow "
                   "oracle, which is not ported (ROADMAP.md Queue 1, M7)",
 }
@@ -61,10 +58,11 @@ def _load_config(path: str | None, name: str):
 
 
 def _build_detector(name: str, config_path, weights_path, products_dir=None,
-                    exact: bool = False, device=None):
+                    exact: bool = False, device=None, data_parallel: int = 0):
     """The detector of a workspace: its config, then its converted
     checkpoint, else its `weights.h5`, else random weights. `device`
-    None is the card."""
+    None is the card; `data_parallel` splits each batch over that many
+    devices of its kind (-1: all)."""
     from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
 
     config = _load_config(config_path, name)
@@ -88,6 +86,11 @@ def _build_detector(name: str, config_path, weights_path, products_dir=None,
         print(f"# loading weights: {weights_path}", file=sys.stderr)
         det = MaskRCNNDetector.from_checkpoint(config, weights_path,
                                                device=device)
+    if data_parallel:
+        det = MaskRCNNDetector(config, det.params, device=det.device,
+                               data_parallel=data_parallel)
+        print(f"# data parallel over {len(det.devices)} devices",
+              file=sys.stderr)
     print(f"# device: {det.device}", file=sys.stderr)
     return det, config
 
@@ -105,8 +108,6 @@ def _device_name(device) -> str:
 # ---------------------------------------------------------------------------
 
 def cmd_convert(args) -> int:
-    if args.export_savedmodel:
-        return _not_ported("export_savedmodel")
     import numpy as np
     import torch
 
@@ -141,6 +142,31 @@ def cmd_convert(args) -> int:
     print(f"products written to {out_dir}: checkpoint.npz"
           f"{' (fp16)' if args.fp16 else ''}, anchors.bin "
           f"({anchors.shape[0]} anchors), config.json")
+
+    if args.export_savedmodel:
+        from maskrcnn_tpu_torch.io.export import export_program, verify_program
+        from maskrcnn_tpu_torch.models.mask_rcnn import resolve_device
+
+        device = resolve_device(args.device)
+        program_dir = args.export_savedmodel
+        t0 = time.time()
+        export_program(params, config, program_dir, batch=args.export_batch,
+                       device=device)
+        diff = verify_program(program_dir, params, config,
+                              batch=args.export_batch, device=device)
+        print(f"torch.export program written to {program_dir} in "
+              f"{time.time()-t0:.1f}s (batch {args.export_batch}, "
+              f"{_device_name(device)}; reload-vs-eager max |diff| "
+              f"{diff:.2e})")
+        if diff > 1e-4:
+            # at random weights a near-tie detection can flip between two
+            # kernel libraries; trained weights have wide margins
+            print("# WARNING: the reloaded program differs from the eager "
+                  "forward beyond 1e-4", file=sys.stderr)
+            if args.strict_export:
+                print("# --strict-export: failing on reload mismatch",
+                      file=sys.stderr)
+                return 1
     return 0
 
 
@@ -149,8 +175,6 @@ def cmd_convert(args) -> int:
 # ---------------------------------------------------------------------------
 
 def cmd_evaluate(args) -> int:
-    if args.dp:
-        return _not_ported("dp")
     if args.compare_tf:
         return _not_ported("compare_tf")
     import numpy as np
@@ -167,7 +191,8 @@ def cmd_evaluate(args) -> int:
     timer = StageTimer()
     detector, config = _build_detector(args.model, args.config, args.weights,
                                        args.products_dir, exact=args.exact,
-                                       device=args.device)
+                                       device=args.device,
+                                       data_parallel=args.dp)
     ann_dir = args.annotations_dir or os.path.join("data", args.dataset)
     dataset = COCODataset.from_dir(ann_dir, args.type, args.year)
     images_dir = args.images_dir or os.path.join(
@@ -608,14 +633,22 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--output_dir")
     c.add_argument("--allow-missing", action="store_true")
     c.add_argument("--export-savedmodel", metavar="DIR",
-                   help="not ported yet (ROADMAP.md Queue 1, M11)")
+                   help="also write the whole forward (weights, anchors "
+                        "and preprocess baked in) to DIR as a torch.export "
+                        "program (model.pt2 + config.json; load it after "
+                        "`import maskrcnn_tpu_torch.ops`), traced on "
+                        "--device and checked against the eager forward "
+                        "on reload")
     c.add_argument("--export-batch", type=int, default=1,
-                   help="with --export-savedmodel (not ported yet)")
+                   help="static batch size of the exported program")
     c.add_argument("--strict-export", action="store_true",
-                   help="with --export-savedmodel (not ported yet)")
+                   help="exit nonzero if the reloaded program differs "
+                        "from the eager forward beyond 1e-4 (default only "
+                        "warns)")
     c.add_argument("--fp16", action="store_true",
                    help="store checkpoint weights as float16; upcast to "
                         "float32 at load")
+    _add_device(c)
     c.set_defaults(fn=cmd_convert)
 
     e = sub.add_parser("evaluate", help="COCO evaluation (bbox + mask AP)")
@@ -628,7 +661,8 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--batch", type=int, default=1,
                    help="inference batch size (reference is batch=1)")
     e.add_argument("--dp", type=int, default=0,
-                   help="not ported yet (ROADMAP.md Queue 1, M9)")
+                   help="split each batch over N devices of --device's "
+                        "kind (0 = one device, -1 = all)")
     e.add_argument("--config")
     e.add_argument("--weights")
     e.add_argument("--products_dir")

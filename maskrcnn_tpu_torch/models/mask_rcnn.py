@@ -1,9 +1,9 @@
 """The Mask-RCNN inference forward, port of `maskrcnn_tpu/models/mask_rcnn.py`.
 
-preprocess -> ResNet (stem K3, chains K4) -> FPN P2..P6 -> RPN -> proposals
-(NMS K1) -> pool-7 ROIAlign (K2) -> classifier head -> detection refine
-(NMS K1) -> pool-14 ROIAlign (K2) -> mask head with per-class select
-[-> on-device mask paste].
+preprocess -> ResNet (stem K3, chains K4) or MobileNetV2 -> FPN P2..P6 ->
+RPN -> proposals (NMS K1) -> pool-7 ROIAlign (K2) -> classifier head ->
+detection refine (NMS K1) -> pool-14 ROIAlign (K2) -> mask head with
+per-class select [-> on-device mask paste].
 
 With `config.fuse_classifier_head` the pool-7 ROIAlign and the classifier
 head run as one kernel (K5), and with `config.fuse_mask_head` (pool 14)
@@ -32,7 +32,7 @@ import torch
 
 from maskrcnn_tpu_torch.core.anchors import anchor_spec, generate_anchors
 from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
-from maskrcnn_tpu_torch.models import fpn, heads, resnet, rpn
+from maskrcnn_tpu_torch.models import fpn, heads, mobilenet, resnet, rpn
 from maskrcnn_tpu_torch.ops.detection import refine_detections
 from maskrcnn_tpu_torch.ops.proposals import generate_proposals
 from maskrcnn_tpu_torch.ops.roi_align import pyramid_roi_align
@@ -64,13 +64,16 @@ def compute_dtype(config: MaskRCNNConfig) -> torch.dtype:
 
 def init_mask_rcnn(gen: torch.Generator,
                    config: MaskRCNNConfig) -> dict[str, Any]:
-    """Random-init the flat Matterport-named parameter dict (CPU tensors)."""
-    if config.architecture not in ("resnet50", "resnet101"):
-        raise NotImplementedError(
-            f"architecture {config.architecture!r} is not ported yet")
+    """Random-init the flat Matterport-named parameter dict (CPU tensors);
+    MobileNetV2 takes the JAX package's `mbv2_*` names."""
     params: dict[str, Any] = {}
-    params.update(resnet.init_resnet(gen, config.architecture))
-    params.update(fpn.init_fpn(gen, config.fpn_channels))
+    if config.architecture == "mobilenetv2":
+        params.update(mobilenet.init_mobilenetv2(gen))
+        params.update(fpn.init_fpn(gen, config.fpn_channels,
+                                   c_channels=mobilenet.C_CHANNELS))
+    else:
+        params.update(resnet.init_resnet(gen, config.architecture))
+        params.update(fpn.init_fpn(gen, config.fpn_channels))
     params.update(rpn.init_rpn(gen, config.fpn_channels,
                                config.anchors_per_location))
     params.update(heads.init_classifier_head(
@@ -83,10 +86,10 @@ def init_mask_rcnn(gen: torch.Generator,
 
 def params_to(params: dict[str, Any], device) -> dict[str, Any]:
     """The params with every tensor on `device` (the same dict if they are
-    there already)."""
+    there already; a device without an index matches any of its kind)."""
     device = torch.device(device)
-    first = next(iter(next(iter(params.values())).values()))
-    if first.device.type == device.type:
+    first = next(iter(next(iter(params.values())).values())).device
+    if first.type == device.type and device.index in (None, first.index):
         return params
     return {layer: {w: v.to(device) for w, v in weights.items()}
             for layer, weights in params.items()}
@@ -104,10 +107,17 @@ def backbone_fpn(params, images: torch.Tensor, config: MaskRCNNConfig,
     """Preprocessed images -> P2..P6. `inference=False` (training and BN
     calibration) keeps the graph for autograd: batch-BN (`bn_ctx`) runs
     the layers; frozen BN takes K3/K4 through their autograd Functions
-    when `config.train_fused_kernels` is set (`models/resnet.py`)."""
-    c2, c3, c4, c5 = resnet.apply_resnet(
-        params, images, config.architecture, dtype=dtype, bn_ctx=bn_ctx,
-        inference=inference, train_fused_kernels=config.train_fused_kernels)
+    when `config.train_fused_kernels` is set (`models/resnet.py`).
+    MobileNetV2 has no kernel of its own (K3 and K4 are ResNet's) and
+    ignores `train_fused_kernels`, as the JAX package does."""
+    if config.architecture == "mobilenetv2":
+        c2, c3, c4, c5 = mobilenet.apply_mobilenetv2(
+            params, images, dtype=dtype, bn_ctx=bn_ctx)
+    else:
+        c2, c3, c4, c5 = resnet.apply_resnet(
+            params, images, config.architecture, dtype=dtype, bn_ctx=bn_ctx,
+            inference=inference,
+            train_fused_kernels=config.train_fused_kernels)
     return fpn.apply_fpn(params, c2, c3, c4, c5, dtype=dtype)
 
 

@@ -10,7 +10,9 @@ of its result.
 Mixed precision as in the JAX package: parameters float32, convolutions and
 matmuls in the compute dtype with the output rounded to it, then the bias
 added in that dtype; BatchNorm (eps 1e-3) in float32, with the moving
-statistics or, in training, the batch's own.
+statistics or, in training, the batch's own (inside
+`parallel/replica.py::replicas`, those of the global batch over every
+rank).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from maskrcnn_tpu_torch.parallel import replica
 
 Params = dict[str, Any]
 
@@ -124,12 +128,22 @@ def batch_norm(x: torch.Tensor, p: Params, *, eps: float = 1e-3,
     but the last (the mean and the biased variance, as `jnp.var`): the
     from-scratch training recipe, which never reads the moving statistics.
     `collect` (a dict) records the batch's (mean, var) under `name`, for
-    `train/calibrate.py::calibrate_bn_stats`."""
+    `train/calibrate.py::calibrate_bn_stats`. Inside
+    `replica.replicas` the batch statistics are the global batch's, as
+    GSPMD normalizes a sharded batch: the mean is the all-reduced sum over
+    the global count, the variance the all-reduced sum of squared
+    deviations from it over the same count (two passes, as `jnp.var`),
+    both differentiable."""
     xf = x.float()
     if use_batch_stats or collect is not None:
         axes = tuple(range(xf.dim() - 1))
-        mean = xf.mean(dim=axes)
-        var = xf.var(dim=axes, unbiased=False)
+        if replica.world_size() > 1 and use_batch_stats:
+            count = xf.numel() // xf.shape[-1] * replica.world_size()
+            mean = replica.all_sum(xf.sum(dim=axes)) / count
+            var = replica.all_sum(((xf - mean) ** 2).sum(dim=axes)) / count
+        else:
+            mean = xf.mean(dim=axes)
+            var = xf.var(dim=axes, unbiased=False)
         if collect is not None:
             collect[name] = (mean, var)
     if use_batch_stats:
@@ -151,6 +165,21 @@ def bn_apply(x: torch.Tensor, params: Params, name: str,
     return batch_norm(x, params[name],
                       use_batch_stats=bn_ctx.get("use_batch_stats", False),
                       collect=bn_ctx.get("collect"), name=name)
+
+
+def depthwise_conv(x: torch.Tensor, p: Params, *, stride: int = 1,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """NHWC depthwise conv with TF SAME padding (the extra row and column
+    on the right at stride 2): kernel (k, k, 1, C) HWIO for C groups, the
+    result rounded to `dtype`, then the bias added in it."""
+    k = p["kernel"]
+    kh, kw, c = k.shape[0], k.shape[1], k.shape[-1]
+    (t, bt) = _same_pads(x.shape[1], kh, stride)
+    (l, r) = _same_pads(x.shape[2], kw, stride)
+    xc = F.pad(x.to(dtype).permute(0, 3, 1, 2), (l, r, t, bt))
+    y = F.conv2d(xc, k.to(dtype).permute(3, 2, 0, 1), stride=stride,
+                 groups=c).permute(0, 2, 3, 1)
+    return (y + p["bias"].to(dtype)).to(dtype)
 
 
 def dense(x: torch.Tensor, p: Params, *, dtype=torch.bfloat16):
@@ -176,3 +205,7 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return x.clamp(0, 6)

@@ -131,12 +131,40 @@ def chain_cuda(x: torch.Tensor, blocks: list[dict]) -> torch.Tensor:
     return x
 
 
+def _flatten_blocks(blocks: list[dict]) -> list:
+    """Each block's `_KEYS` in order, None for a missing projection."""
+    return [blk.get(k) for blk in blocks for k in _KEYS]
+
+
+def _unflatten_blocks(flat) -> list[dict]:
+    n = len(_KEYS)
+    return [{k: t for k, t in zip(_KEYS, flat[i:i + n]) if t is not None}
+            for i in range(0, len(flat), n)]
+
+
+@torch.library.custom_op("maskrcnn_tpu_torch::bottleneck_chain",
+                         mutates_args=(), device_types="cpu")
+def _chain_op(x: torch.Tensor,
+              weights: list[torch.Tensor | None]) -> torch.Tensor:
+    return chain_plain(x, _unflatten_blocks(weights))
+
+
+@_chain_op.register_kernel("cuda")
+def _(x, weights):
+    return chain_cuda(x, _unflatten_blocks(weights))
+
+
+@_chain_op.register_fake
+def _(x, weights):
+    cout = weights[-len(_KEYS) + _KEYS.index("w3")].shape[1]
+    return x.new_empty((*x.shape[:3], cout), dtype=torch.bfloat16)
+
+
 def fused_bottleneck_chain(x: torch.Tensor,
                            blocks: list[dict]) -> torch.Tensor:
-    """Kernel on a CUDA tensor, plain version on a CPU tensor."""
-    if x.is_cuda:
-        return chain_cuda(x, blocks)
-    return chain_plain(x, blocks)
+    """The op `maskrcnn_tpu_torch::bottleneck_chain`: the kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    return _chain_op(x.contiguous(), _flatten_blocks(blocks))
 
 
 def chain_supported(x: torch.Tensor, dtype: torch.dtype,

@@ -107,10 +107,24 @@ def nms_keep_cuda(boxes: torch.Tensor, cand: torch.Tensor,
     return keep
 
 
+@torch.library.custom_op("maskrcnn_tpu_torch::nms_keep", mutates_args=(),
+                         device_types="cpu")
+def _nms_keep_op(boxes: torch.Tensor, cand: torch.Tensor,
+                 iou_threshold: float, max_out: int) -> torch.Tensor:
+    return nms_keep_plain(boxes, cand, iou_threshold, max_out).contiguous()
+
+
+_nms_keep_op.register_kernel("cuda")(nms_keep_cuda)
+
+
+@_nms_keep_op.register_fake
+def _(boxes, cand, iou_threshold, max_out):
+    return cand.new_empty(cand.shape, dtype=torch.bool)
+
+
 def nms_keep(boxes: torch.Tensor, cand: torch.Tensor, iou_threshold: float,
              max_out: int) -> torch.Tensor:
-    """Kernel on a CUDA tensor, plain version on a CPU tensor."""
-    if boxes.is_cuda:
-        return nms_keep_cuda(boxes.contiguous(), cand.contiguous(),
-                             iou_threshold, max_out)
-    return nms_keep_plain(boxes, cand, iou_threshold, max_out)
+    """The op `maskrcnn_tpu_torch::nms_keep`: the kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    return _nms_keep_op(boxes.contiguous(), cand.contiguous(),
+                        float(iou_threshold), int(max_out))

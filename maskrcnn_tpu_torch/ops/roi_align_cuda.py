@@ -128,14 +128,31 @@ def roi_align_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("maskrcnn_tpu_torch::roi_align", mutates_args=(),
+                         device_types="cpu")
+def _roi_align_op(features: list[torch.Tensor], ys: torch.Tensor,
+                  xs: torch.Tensor, level: torch.Tensor, valid: torch.Tensor,
+                  rois_per_image: int) -> torch.Tensor:
+    return roi_align_plain(features, ys, xs, level, valid, rois_per_image)
+
+
+_roi_align_op.register_kernel("cuda")(roi_align_cuda)
+
+
+@_roi_align_op.register_fake
+def _(features, ys, xs, level, valid, rois_per_image):
+    m, p = ys.shape
+    return ys.new_empty((m, p, p, features[0].shape[-1]),
+                        dtype=features[0].dtype)
+
+
 def roi_align(features: Sequence[torch.Tensor], ys: torch.Tensor,
               xs: torch.Tensor, level: torch.Tensor, valid: torch.Tensor,
               rois_per_image: int) -> torch.Tensor:
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
-    if ys.is_cuda:
-        return roi_align_cuda([f.contiguous() for f in features], ys, xs,
-                              level, valid, rois_per_image)
-    return roi_align_plain(features, ys, xs, level, valid, rois_per_image)
+    """The op `maskrcnn_tpu_torch::roi_align`: the kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    return _roi_align_op([f.contiguous() for f in features], ys, xs, level,
+                         valid, int(rois_per_image))
 
 
 class RoiAlignDiff(torch.autograd.Function):
@@ -306,16 +323,39 @@ def classifier_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
     return out[:m]
 
 
+HEAD_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
+
+
+@torch.library.custom_op("maskrcnn_tpu_torch::roi_classifier_head",
+                         mutates_args=(), device_types="cpu")
+def _classifier_head_op(features: list[torch.Tensor], ys: torch.Tensor,
+                        xs: torch.Tensor, level: torch.Tensor,
+                        valid: torch.Tensor, rois_per_image: int,
+                        head: list[torch.Tensor]) -> torch.Tensor:
+    return classifier_head_plain(features, ys, xs, level, valid,
+                                 rois_per_image, dict(zip(HEAD_KEYS, head)))
+
+
+@_classifier_head_op.register_kernel("cuda")
+def _(features, ys, xs, level, valid, rois_per_image, head):
+    return classifier_head_cuda(features, ys, xs, level, valid,
+                                rois_per_image, dict(zip(HEAD_KEYS, head)))
+
+
+@_classifier_head_op.register_fake
+def _(features, ys, xs, level, valid, rois_per_image, head):
+    return ys.new_empty((ys.shape[0], head[4].shape[1]), dtype=torch.float32)
+
+
 def roi_classifier_head(features: Sequence[torch.Tensor], ys: torch.Tensor,
                         xs: torch.Tensor, level: torch.Tensor,
                         valid: torch.Tensor, rois_per_image: int,
                         head: dict) -> torch.Tensor:
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
-    if ys.is_cuda:
-        return classifier_head_cuda([f.contiguous() for f in features], ys,
-                                    xs, level, valid, rois_per_image, head)
-    return classifier_head_plain(features, ys, xs, level, valid,
-                                 rois_per_image, head)
+    """The op `maskrcnn_tpu_torch::roi_classifier_head`: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    return _classifier_head_op([f.contiguous() for f in features], ys, xs,
+                               level, valid, int(rois_per_image),
+                               [head[k] for k in HEAD_KEYS])
 
 
 # --------------------------------------------------------------------------
@@ -441,13 +481,37 @@ def mask_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
     return out
 
 
+MASK_KEYS = ("wconv", "bconv", "wdec", "bdec", "kcls", "bcls")
+
+
+@torch.library.custom_op("maskrcnn_tpu_torch::roi_mask_head", mutates_args=(),
+                         device_types="cpu")
+def _mask_head_op(features: list[torch.Tensor], ys: torch.Tensor,
+                  xs: torch.Tensor, level: torch.Tensor, valid: torch.Tensor,
+                  rois_per_image: int, mask: list[torch.Tensor],
+                  class_ids: torch.Tensor) -> torch.Tensor:
+    return mask_head_plain(features, ys, xs, level, valid, rois_per_image,
+                           dict(zip(MASK_KEYS, mask)), class_ids).contiguous()
+
+
+@_mask_head_op.register_kernel("cuda")
+def _(features, ys, xs, level, valid, rois_per_image, mask, class_ids):
+    return mask_head_cuda(features, ys, xs, level, valid, rois_per_image,
+                          dict(zip(MASK_KEYS, mask)), class_ids)
+
+
+@_mask_head_op.register_fake
+def _(features, ys, xs, level, valid, rois_per_image, mask, class_ids):
+    m, p = ys.shape
+    return ys.new_empty((m, 2 * p, 2 * p), dtype=torch.float32)
+
+
 def roi_mask_head(features: Sequence[torch.Tensor], ys: torch.Tensor,
                   xs: torch.Tensor, level: torch.Tensor, valid: torch.Tensor,
                   rois_per_image: int, mask: dict,
                   class_ids: torch.Tensor) -> torch.Tensor:
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
-    if ys.is_cuda:
-        return mask_head_cuda([f.contiguous() for f in features], ys, xs,
-                              level, valid, rois_per_image, mask, class_ids)
-    return mask_head_plain(features, ys, xs, level, valid, rois_per_image,
-                           mask, class_ids)
+    """The op `maskrcnn_tpu_torch::roi_mask_head`: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    return _mask_head_op([f.contiguous() for f in features], ys, xs, level,
+                         valid, int(rois_per_image),
+                         [mask[k] for k in MASK_KEYS], class_ids)

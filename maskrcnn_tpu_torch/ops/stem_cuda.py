@@ -78,13 +78,29 @@ def stem_cuda(images: torch.Tensor, w: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("maskrcnn_tpu_torch::stem", mutates_args=(),
+                         device_types="cpu")
+def _stem_op(images: torch.Tensor, w: torch.Tensor,
+             bias: torch.Tensor) -> torch.Tensor:
+    return stem_plain(images, w, bias)
+
+
+_stem_op.register_kernel("cuda")(stem_cuda)
+
+
+@_stem_op.register_fake
+def _(images, w, bias):
+    b, h, wd, _ = images.shape
+    conv = [(s - 1) // 2 + 1 for s in (h, wd)]          # 7x7/2, pad 3
+    pooled = [(s - 2) // 2 + 1 for s in conv]           # 3x3/2, pad (0, 1)
+    return images.new_empty((b, *pooled, w.shape[-1]), dtype=torch.bfloat16)
+
+
 def stem(images: torch.Tensor, w: torch.Tensor,
          bias: torch.Tensor) -> torch.Tensor:
-    """Kernel on a CUDA tensor, plain version on a CPU tensor."""
-    if images.is_cuda:
-        return stem_cuda(images.contiguous(), w.contiguous(),
-                         bias.contiguous())
-    return stem_plain(images, w, bias)
+    """The op `maskrcnn_tpu_torch::stem`: the kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    return _stem_op(images.contiguous(), w.contiguous(), bias.contiguous())
 
 
 def stem_supported(images: torch.Tensor, dtype: torch.dtype) -> bool:

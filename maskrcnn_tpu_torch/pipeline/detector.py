@@ -1,8 +1,8 @@
 """User-facing detector: params on the card -> forward -> unmold on the host.
-Port of `maskrcnn_tpu/pipeline/detector.py` (single device; masks pasted
-on the host with PIL's bilinear resample, as full boolean canvases or as
-COCO RLE of the box region only, or on the device by
-`run_batch(..., paste_size=S)`).
+Port of `maskrcnn_tpu/pipeline/detector.py` (one device, or every batch
+split over several with `data_parallel`; masks pasted on the host with
+PIL's bilinear resample, as full boolean canvases or as COCO RLE of the
+box region only, or on the device by `run_batch(..., paste_size=S)`).
 
     det = MaskRCNNDetector.from_checkpoint(MaskRCNNConfig(), "ckpt.npz")
     results = det.detect_images([img1, img2])   # list of list[Detection]
@@ -39,14 +39,25 @@ class Detection:
 
 
 class MaskRCNNDetector:
-    """A config plus its params on one device (default: the card)."""
+    """A config plus its params on one device (default: the card).
+
+    `data_parallel`: split each batch over this many devices of
+    `device`'s kind (0: one device, -1: all; `parallel/mesh.py`), the
+    params replicated on each once; `devices` lists them (None: one
+    device)."""
 
     def __init__(self, config: MaskRCNNConfig, params: dict[str, Any],
-                 mask_threshold: float = 0.5, device=None):
+                 mask_threshold: float = 0.5, device=None,
+                 data_parallel: int = 0):
         self.config = config
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
         self.mask_threshold = mask_threshold
+        self.devices = None
+        if data_parallel:
+            from maskrcnn_tpu_torch.parallel.mesh import make_mesh, replicate
+            self.devices = make_mesh(data_parallel, self.device.type)
+            self._replicas = replicate(self.devices, self.params)
 
     @classmethod
     def from_random(cls, config: MaskRCNNConfig, seed: int = 0, device=None):
@@ -76,8 +87,26 @@ class MaskRCNNDetector:
         outputs (normalized coordinates, on the device). `paste_size` also
         pastes full-resolution uint8 masks on the device
         (`out["pasted"]`)."""
+        if self.devices is not None:
+            return self._run_batch_dp(images, paste_size)
         return forward(self.params, images, self.config, device=self.device,
                        paste_size=paste_size)
+
+    def _run_batch_dp(self, images, paste_size=None
+                      ) -> dict[str, torch.Tensor]:
+        from maskrcnn_tpu_torch.parallel.mesh import data_parallel_forward
+
+        images = torch.as_tensor(images)
+        b = images.shape[0]
+        pad = (-b) % len(self.devices)
+        if pad:
+            # pad in the batch's own dtype: a uint8 batch stays uint8
+            images = torch.cat([images, images.new_zeros(
+                (pad, *images.shape[1:]))])
+        out = data_parallel_forward(self.devices, self.config,
+                                    self._replicas, images,
+                                    paste_size=paste_size)
+        return {k: v[:b] for k, v in out.items()} if pad else out
 
     # --- host decode -------------------------------------------------------
 

@@ -8,6 +8,7 @@ losses, backward, the SGD update) on a fixed synthetic batch.
 
     python -m maskrcnn_tpu_torch.tools.bench                 # R101 @ 1024^2
     python -m maskrcnn_tpu_torch.tools.bench --fuse both     # K5/K6 heads
+    python -m maskrcnn_tpu_torch.tools.bench --arch mobilenetv2
     python -m maskrcnn_tpu_torch.tools.bench --mode train --train-bn frozen \\
         --train-fused-kernels                             # K3/K4 in training
     python -m maskrcnn_tpu_torch.tools.bench --preset tiny --batch 2
@@ -41,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--arch", default="resnet101",
-                    choices=("resnet101", "resnet50"),
+                    choices=("resnet101", "resnet50", "mobilenetv2"),
                     help="backbone for the full preset")
     ap.add_argument("--fuse", choices=("config", "none", "cls", "mask",
                                        "both"), default="config",

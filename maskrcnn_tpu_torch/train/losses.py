@@ -1,11 +1,19 @@
 """Mask-RCNN loss functions (Matterport formulation), port of
 `maskrcnn_tpu/train/losses.py`: each a mean over its valid rows, with the
-validity as a mask rather than a filter (static shapes)."""
+validity as a mask rather than a filter (static shapes).
+
+Inside `parallel/replica.py::replicas` (a data-parallel step) the head
+losses and the mean over images are each rank's share of the global
+batch's mean: the local sum over the global count, so that the ranks'
+losses add up to the single-device loss of the whole batch. The RPN
+losses stay per-image means."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from maskrcnn_tpu_torch.parallel import replica
 
 
 def smooth_l1(diff: torch.Tensor) -> torch.Tensor:
@@ -13,9 +21,19 @@ def smooth_l1(diff: torch.Tensor) -> torch.Tensor:
     return torch.where(ad < 1.0, 0.5 * ad * ad, ad - 0.5)
 
 
-def _mean_over(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _mean_over(x: torch.Tensor, mask: torch.Tensor,
+               across_replicas: bool = False) -> torch.Tensor:
     m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp_min(1.0)
+    count = replica.all_sum_detached(m.sum()) if across_replicas else m.sum()
+    return (x * m).sum() / count.clamp_min(1.0)
+
+
+def mean_over_images(per_image: torch.Tensor) -> torch.Tensor:
+    """The mean of per-image losses (B,) over the global batch."""
+    world = replica.world_size()
+    if world == 1:
+        return per_image.mean()
+    return per_image.sum() / (per_image.shape[0] * world)
 
 
 def rpn_class_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -41,7 +59,7 @@ def mrcnn_class_loss(logits: torch.Tensor, class_ids: torch.Tensor,
     """(T, C) class logits vs (T,) targets (0 = background), valid rois."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, class_ids.to(torch.int64)[:, None])[:, 0]
-    return _mean_over(nll, valid)
+    return _mean_over(nll, valid, across_replicas=True)
 
 
 def mrcnn_bbox_loss(pred_deltas: torch.Tensor, target_deltas: torch.Tensor,
@@ -51,7 +69,7 @@ def mrcnn_bbox_loss(pred_deltas: torch.Tensor, target_deltas: torch.Tensor,
     ids = class_ids.to(torch.int64)[:, None, None].expand(-1, 1, 4)
     sel = pred_deltas.float().gather(1, ids)[:, 0]
     per = smooth_l1(sel - target_deltas).sum(dim=-1)
-    return _mean_over(per, class_ids > 0)
+    return _mean_over(per, class_ids > 0, across_replicas=True)
 
 
 def mrcnn_mask_loss(pred_masks: torch.Tensor, target_masks: torch.Tensor,
@@ -66,4 +84,5 @@ def mrcnn_mask_loss(pred_masks: torch.Tensor, target_masks: torch.Tensor,
     sel = sel.clamp(eps, 1.0 - eps)
     bce = -(target_masks * torch.log(sel)
             + (1.0 - target_masks) * torch.log(1.0 - sel))
-    return _mean_over(bce.mean(dim=(1, 2)), class_ids > 0)
+    return _mean_over(bce.mean(dim=(1, 2)), class_ids > 0,
+                      across_replicas=True)

@@ -82,7 +82,9 @@ def compute_losses(params, batch: dict[str, torch.Tensor],
     batch: images (B, S, S, 3) RGB [0, 255]; gt_boxes (B, G, 4) normalized;
     gt_class_ids (B, G) int (0 = pad, < 0 crowd); gt_masks (B, G, M, M)
     mini-masks. `draws` from `draw_uniforms`. Returns (total loss,
-    metrics dict of 0-d tensors)."""
+    metrics dict of 0-d tensors). Inside `parallel/replica.py::replicas`
+    the batch is this rank's shard and each loss this rank's share of the
+    global batch's (`train/losses.py`): the ranks' losses add up to it."""
     dtype = compute_dtype(config)
     images = batch["images"]
     gt_boxes = batch["gt_boxes"].to(torch.float32)
@@ -112,8 +114,8 @@ def compute_losses(params, batch: dict[str, torch.Tensor],
         rpn_cls.append(L.rpn_class_loss(rpn_logits[i], t.labels))
         rpn_box.append(L.rpn_bbox_loss(rpn_deltas[i], t.pos_deltas,
                                        t.pos_idx, t.pos_valid))
-    loss_rpn_cls = torch.stack(rpn_cls).mean()
-    loss_rpn_box = torch.stack(rpn_box).mean()
+    loss_rpn_cls = L.mean_over_images(torch.stack(rpn_cls))
+    loss_rpn_box = L.mean_over_images(torch.stack(rpn_box))
 
     # --- proposals: no gradient through decode and NMS (Matterport) ------
     with torch.no_grad():

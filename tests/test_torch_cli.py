@@ -1,8 +1,9 @@
 """The port's CLI over a synthetic on-disk COCO workspace, on the CPU
 (`--device cpu`, tiny config): convert (with `anchors.bin` bytes equal to
-the JAX package's), evaluate, demo, stream, download, and the options not
-ported yet; the `.h5` weight bridge both ways against the JAX package's;
-and the bench script's parser and its refusal to run without a card."""
+the JAX package's, and `--export-savedmodel`), evaluate (with `--dp`),
+demo, stream, download, and the option not ported; the `.h5` weight
+bridge both ways against the JAX package's; and the bench script's parser
+and its refusal to run without a card."""
 
 import json
 import os
@@ -178,14 +179,52 @@ def test_entry_points_need_a_card_unless_asked(ws, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["evaluate", "t", "coco", "--dp", "2"], "M9"),
-    (["convert", "t", "--export-savedmodel", "sm"], "M11"),
     (["evaluate", "t", "coco", "--compare-tf"], "M7"),
 ])
 def test_options_not_ported_exit_nonzero(ws, capsys, argv, item):
     assert main(argv) != 0
     err = capsys.readouterr().err
     assert "not ported" in err and f"ROADMAP.md Queue 1, {item}" in err
+
+
+def test_evaluate_dp_writes_the_same_results(ws, capsys):
+    """`--dp 2` on the CPU (the CPU listed twice) splits each batch of 3
+    over two devices, padded to 4 (two images each), and writes the
+    results.json of the single-device run at batch 2: the same shapes
+    reach each conv, so the same numbers come out."""
+    args = ["evaluate", "t", "coco", "--limit", "4", "--device", "cpu"]
+    assert main(args + ["--batch", "2", "--results_dir", "one"]) == 0
+    assert main(args + ["--batch", "3", "--results_dir", "dp",
+                        "--dp", "2"]) == 0
+    assert "data parallel over 2 devices" in capsys.readouterr().err
+    rows = [json.load(open(ws / d / "results.json")) for d in ("one", "dp")]
+    assert len(rows[0]) == 4 * CONFIG.max_detections
+    assert rows[0] == rows[1]
+
+
+def test_convert_exports_a_program_that_reloads_equal(ws, capsys):
+    assert main(["convert", "t", "--output_dir", "pe", "--device", "cpu",
+                 "--export-savedmodel", "prog", "--export-batch", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "reload-vs-eager max |diff| 0.00e+00" in out, out
+    assert os.path.getsize(ws / "prog/model.pt2") > 0
+    with open(ws / "prog/config.json") as f:
+        assert json.load(f)["num_classes"] == CONFIG.num_classes
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_strict_export_fails_on_a_reload_mismatch(ws, capsys, monkeypatch,
+                                                  strict):
+    """A reload diff over 1e-4 warns, and with --strict-export exits 1."""
+    import maskrcnn_tpu_torch.io.export as export
+    monkeypatch.setattr(export, "export_program", lambda *a, **k: None)
+    monkeypatch.setattr(export, "verify_program", lambda *a, **k: 2e-4)
+    argv = ["convert", "t", "--output_dir", "pm", "--device", "cpu",
+            "--export-savedmodel", "progm"]
+    assert main(argv + ["--strict-export"] * strict) == (1 if strict else 0)
+    err = capsys.readouterr().err
+    assert "differs from the eager forward beyond 1e-4" in err
+    assert ("--strict-export: failing" in err) == strict
 
 
 def test_download_fails_cleanly_and_copies_a_local_mirror(ws, capsys):

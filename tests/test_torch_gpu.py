@@ -647,3 +647,198 @@ def test_gpu_full_width_train_step(frozen):
                 # the moving statistics
                 if frozen or w.startswith("moving"):
                     assert torch.equal(new.params[layer][w], v), (layer, w)
+
+
+# --------------------------------------------------------------------------
+# the kernels as custom ops, and the paths of MobileNetV2, export and DP
+# --------------------------------------------------------------------------
+
+def _gpu_op_cases(dev):
+    """name -> (op args on `dev`, wrapper call, plain call, tolerance as a
+    fraction of the plain output's largest value, launches of one call) at
+    the shapes of the tests above."""
+    nms = [nms_case("clustered", 6000, seed) for seed in (0, 1)]
+    boxes = torch.from_numpy(np.stack([c[0] for c in nms])).to(dev)
+    valid = torch.from_numpy(np.stack([c[1] for c in nms])).to(dev)
+    feats, ys, xs, level, valid_r, n = _roi_case(dtype=torch.bfloat16)
+    roi = ([f.to(dev) for f in feats], ys.to(dev), xs.to(dev),
+           level.to(dev), valid_r.to(dev), n)
+    hf, hp, hn, head, _ = _head_case(n=20, dtype=torch.bfloat16)
+    hargs = ([f.to(dev) for f in hf], *[t.to(dev) for t in hp], hn)
+    head = {k: v.to(dev) for k, v in head.items()}
+    mf, mp, mn, mask, ids = _head_case(b=2, n=37, crop=14,
+                                       dtype=torch.bfloat16)
+    margs = ([f.to(dev) for f in mf], *[t.to(dev) for t in mp], mn)
+    mask = {k: v.to(dev) for k, v in mask.items()}
+    ids = ids.to(dev)
+    rng = np.random.default_rng(0)
+    sp = {k: {w: torch.from_numpy(v).to(dev) for w, v in d.items()}
+          for k, d in stem_params(rng).items()}
+    w, bias = stem_cuda.fold_stem_weights(sp["conv1"], sp["bn_conv1"])
+    images = torch.from_numpy(rng.uniform(-124, 132, (2, 128, 128, 3))
+                              .astype(np.float32)).to(dev)
+    x, blocks = _chain_case()
+    x = x.to(dev)
+    blocks = [{k: v.to(dev) for k, v in b.items()} for b in blocks]
+    rac = roi_align_cuda
+    return {
+        "nms_keep": ((boxes, valid, 0.7, 1000),
+                     lambda: nms_cuda.nms_keep(boxes, valid, 0.7, 1000),
+                     lambda: nms_cuda.nms_keep_plain(boxes, valid, 0.7,
+                                                     1000), 0.0, 1),
+        "roi_align": (roi, lambda: rac.roi_align(*roi),
+                      lambda: rac.roi_align_plain(*roi), 1e-2, 1),
+        "roi_classifier_head": (
+            (*hargs, [head[k] for k in rac.HEAD_KEYS]),
+            lambda: rac.roi_classifier_head(*hargs, head),
+            lambda: rac.classifier_head_plain(*hargs, head), 0.02, 1),
+        "roi_mask_head": (
+            (*margs, [mask[k] for k in rac.MASK_KEYS], ids),
+            lambda: rac.roi_mask_head(*margs, mask, ids),
+            lambda: rac.mask_head_plain(*margs, mask, ids), 1e-2, 1),
+        "stem": ((images, w, bias), lambda: stem_cuda.stem(images, w, bias),
+                 lambda: stem_cuda.stem_plain(images, w, bias), 1e-2, 1),
+        "bottleneck_chain": (
+            (x, bottleneck_cuda._flatten_blocks(blocks)),
+            lambda: bottleneck_cuda.fused_bottleneck_chain(x, blocks),
+            lambda: bottleneck_cuda.chain_plain(x, blocks), 0.05, 3),
+    }
+
+
+OP_FAMILY = {"nms_keep": "nms", "bottleneck_chain": "bottleneck"}
+OPS = ("nms_keep", "roi_align", "roi_classifier_head", "roi_mask_head",
+       "stem", "bottleneck_chain")
+PLAINS = {"nms_keep": (nms_cuda, "nms_keep_plain"),
+          "roi_align": (roi_align_cuda, "roi_align_plain"),
+          "roi_classifier_head": (roi_align_cuda, "classifier_head_plain"),
+          "roi_mask_head": (roi_align_cuda, "mask_head_plain"),
+          "stem": (stem_cuda, "stem_plain"),
+          "bottleneck_chain": (bottleneck_cuda, "chain_plain")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OPS)
+def test_gpu_custom_op_launches_kernel_and_matches_plain(name):
+    """`torch.ops.maskrcnn_tpu_torch.<name>` on CUDA tensors launches its
+    kernel (the launch count moves) and equals the plain version within
+    the tolerances of the kernel tests above."""
+    dev = _card()
+    args, _, plain, tol, launches = _gpu_op_cases(dev)[name]
+    cuda_lib.reset_launches()
+    got = getattr(torch.ops.maskrcnn_tpu_torch, name)(*args)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches[OP_FAMILY.get(name, name)] == launches
+    want = plain()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if name == "nms_keep":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol * want.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OPS)
+def test_gpu_wrapper_never_takes_the_plain_version(monkeypatch, name):
+    """With the plain version made to raise, the wrapper still runs on
+    CUDA tensors: the card has no fallback to it."""
+    dev = _card()
+    cases = _gpu_op_cases(dev)
+    module, attr = PLAINS[name]
+
+    def refuse(*a, **k):
+        raise AssertionError(f"{attr} reached on the card")
+
+    monkeypatch.setattr(module, attr, refuse)
+    out = cases[name][1]()
+    torch.cuda.synchronize()
+    assert out.is_cuda
+
+
+def _tiny(**overrides):
+    from maskrcnn_tpu_torch.core.config import tiny_test_config
+    return tiny_test_config().replace(**overrides)
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 convolutions and products in full float32 on the card."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.gpu
+def test_gpu_mobilenet_forward_matches_cpu(no_tf32):
+    """MobileNetV2-FPN at the tiny config in float32: the card's forward
+    (K1 and K2; no K3 or K4, which are ResNet's) against the CPU's."""
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    dev = _card()
+    cfg = _tiny(architecture="mobilenetv2", compute_dtype="float32",
+                detection_score_threshold=0.25)
+    gen = torch.Generator().manual_seed(0)
+    params = M.init_mask_rcnn(gen, cfg)
+    _live_bn(params, gen)
+    images = torch.rand((2, 128, 128, 3), generator=gen) * 255
+    want = M.to_numpy(M.forward(params, images, cfg, device="cpu"))
+    cuda_lib.reset_launches()
+    got = M.to_numpy(M.forward(params, images, cfg, device=dev))
+    launches = dict(cuda_lib.launches)
+    assert launches["nms"] == 2 and launches["roi_align"] == 2
+    assert launches["stem"] == launches["bottleneck"] == 0
+    np.testing.assert_array_equal(got["roi_valid"], want["roi_valid"])
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    for k in ("rois", "detections", "masks"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+
+
+@pytest.mark.gpu
+def test_gpu_export_round_trip(tmp_path):
+    """A bf16 tiny-config program exported on the card reloads and runs
+    K1-K4 there, within 1e-4 of the eager forward."""
+    from maskrcnn_tpu_torch.io import export
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    dev = _card()
+    cfg = _tiny(detection_score_threshold=0.0)
+    gen = torch.Generator().manual_seed(1)
+    params = M.init_mask_rcnn(gen, cfg)
+    _live_bn(params, gen)
+    export.export_program(params, cfg, str(tmp_path), batch=2, device=dev)
+    program = export.load_program(str(tmp_path))
+    images = (torch.rand((2, 128, 128, 3), generator=gen) * 255).to(dev)
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        got = program(images)
+    torch.cuda.synchronize()
+    assert all(cuda_lib.launches[k] > 0
+               for k in ("nms", "roi_align", "stem", "bottleneck"))
+    want = M.forward(params, images, cfg, device=dev)
+    assert torch.equal(got["valid"], want["valid"])
+    for k in ("detections", "masks"):
+        assert float((got[k].float() - want[k].float()).abs().max()) <= 1e-4
+    assert export.verify_program(str(tmp_path), params, cfg, batch=2,
+                                 device=dev) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_gpu_data_parallel_1_equals_single_device():
+    """`MaskRCNNDetector(data_parallel=1)` on the card against the plain
+    detector: the same outputs bit for bit, an odd uint8 batch too."""
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
+    dev = _card()
+    cfg = _tiny(detection_score_threshold=0.0)
+    params = M.init_mask_rcnn(torch.Generator().manual_seed(2), cfg)
+    one = MaskRCNNDetector(cfg, params, device=dev)
+    dp = MaskRCNNDetector(cfg, params, device=dev, data_parallel=1)
+    images = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (3, 128, 128, 3), dtype=np.uint8))
+    want, got = one.run_batch(images), dp.run_batch(images)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -53,6 +53,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert {f"maskrcnn_tpu_torch.train.{m}" for m in (
         "targets", "losses", "step", "calibrate", "checkpoint",
         "data")} <= set(_port_modules())
+    assert {"maskrcnn_tpu_torch.models.mobilenet",
+            "maskrcnn_tpu_torch.io.export",
+            "maskrcnn_tpu_torch.parallel.mesh",
+            "maskrcnn_tpu_torch.parallel.replica"} <= set(_port_modules())
     code = ("import sys\n"
             f"for m in {_port_modules()!r}:\n"
             "    __import__(m)\n"
@@ -238,3 +242,70 @@ def test_block_supported_takes_any_height_and_width(shape, mid, cout, proj,
     if proj:
         blk["ws"] = torch.zeros(shape[-1], cout)
     assert bottleneck_cuda.block_supported(shape, blk) == ok
+
+
+def _op_cases():
+    """(op name, wrapper call, plain call, op args) of each kernel's custom
+    op at small shapes on the CPU."""
+    boxes, valid = _nms_case()
+    feats, ys, xs, level, valid_r, n = _roi_case()
+    rng = np.random.default_rng(0)
+    sp = {k: {w: torch.from_numpy(v) for w, v in d.items()}
+          for k, d in stem_params(rng).items()}
+    w, b = stem_cuda.fold_stem_weights(sp["conv1"], sp["bn_conv1"])
+    images = torch.from_numpy(rng.uniform(-120, 130, (1, 64, 64, 3))
+                              .astype(np.float32))
+    x, blocks = _chain_case()
+    hfeats, hprep, hn, head, _ = _head_case(c=32, n=6)
+    mfeats, mprep, mn, mask, ids = _head_case(c=32, n=6, crop=14)
+    rac = roi_align_cuda
+    return {
+        "nms_keep": (lambda: nms_cuda.nms_keep(boxes, valid, 0.7, 50),
+                     lambda: nms_cuda.nms_keep_plain(boxes, valid, 0.7, 50),
+                     (boxes, valid, 0.7, 50)),
+        "roi_align": (
+            lambda: rac.roi_align(feats, ys, xs, level, valid_r, n),
+            lambda: rac.roi_align_plain(feats, ys, xs, level, valid_r, n),
+            (feats, ys, xs, level, valid_r, n)),
+        "roi_classifier_head": (
+            lambda: rac.roi_classifier_head(hfeats, *hprep, hn, head),
+            lambda: rac.classifier_head_plain(hfeats, *hprep, hn, head),
+            (hfeats, *hprep, hn, [head[k] for k in rac.HEAD_KEYS])),
+        "roi_mask_head": (
+            lambda: rac.roi_mask_head(mfeats, *mprep, mn, mask, ids),
+            lambda: rac.mask_head_plain(mfeats, *mprep, mn, mask, ids),
+            (mfeats, *mprep, mn, [mask[k] for k in rac.MASK_KEYS], ids)),
+        "stem": (lambda: stem_cuda.stem(images, w, b),
+                 lambda: stem_cuda.stem_plain(images, w, b),
+                 (images, w, b)),
+        "bottleneck_chain": (
+            lambda: bottleneck_cuda.fused_bottleneck_chain(x, blocks),
+            lambda: bottleneck_cuda.chain_plain(x, blocks),
+            (x, bottleneck_cuda._flatten_blocks(blocks))),
+    }
+
+
+OPS = ("nms_keep", "roi_align", "roi_classifier_head", "roi_mask_head",
+       "stem", "bottleneck_chain")
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_custom_op_passes_opcheck(name):
+    """Each kernel is an op of the `maskrcnn_tpu_torch` namespace whose
+    schema, fake (shape and dtype) implementation, autograd registration
+    and dispatch `torch.library.opcheck` accepts."""
+    args = _op_cases()[name][2]
+    op = getattr(torch.ops.maskrcnn_tpu_torch, name).default
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_custom_op_equals_plain_version_on_cpu(name):
+    """The wrapper (through the op) gives the plain version's output, bit
+    for bit, and launches nothing."""
+    call, plain, _ = _op_cases()[name]
+    cuda_lib.reset_launches()
+    got, want = call(), plain()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert not any(cuda_lib.launches.values())
