@@ -94,7 +94,8 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            frozen and batch BN steps against one process's step on both
            images (loss 5e-2 relative, params 1e-4), and the batch-BN
            statistics at three layers against one process's over the
-           gathered inputs (1e-5 relative)
+           gathered inputs (1e-5 relative); `parallel.mesh.dryrun_step(1)`
+           (its default: NCCL, rank 0 on card 0)
   custom_op_dispatch  the e2e forward's wall ms and device launches with
            every kernel called through its custom op, beside the same
            forward's numbers before the ops
@@ -818,15 +819,17 @@ def e2e(dev, seed, batch):
           "profile": profile,
           "launches_default": launches_default, "launches": launches})
     # every kernel call of this forward goes through its custom op
-    # (`maskrcnn_tpu_torch::*`); before the ops the same forward took
-    # 41.6-44.5 ms and 2051 device launches on the same card (PERF.md)
+    # (`maskrcnn_tpu_torch::*`); the `reference_` keys are not of this run:
+    # the same forward before the ops, as PERF.md records it
     emit({"phase": "custom_op_dispatch", "forward_batch_ms": lat,
           "device_launches": profile["launches"],
           "kernel_calls_per_forward": {k: v * batch / len(images)
                                        for k, v in launches.items()},
-          "before_ops_forward_batch_ms": [41.6, 44.5],
-          "before_ops_device_launches": 2051,
-          "before_ops_card": "NVIDIA H100 80GB HBM3, 700.00 W"})
+          "reference_before_ops_forward_batch_ms": [41.6, 44.5],
+          "reference_before_ops_device_launches": 2051,
+          "reference_before_ops_card": "NVIDIA H100 80GB HBM3, 700.00 W",
+          "reference_source": "PERF.md section 6, PR 7 chip run, not "
+                              "measured in this run"})
     if not (all(finite.values()) and masks_ok and boxes_ok):
         raise AssertionError("non-finite or malformed detector output")
     if min(n_low) != cfg.max_detections:
@@ -1929,12 +1932,13 @@ def _allclose_ratio(a, b, rtol, atol) -> float:
 def _dp_gloo_rank(rank, world, store, seed, out, device, base):
     """One rank of the gloo world on the one card: a frozen-BN DP step on
     this rank's image (rank 0 then runs the single-process step on both),
-    then the batch-BN statistics inside `replicas` at BN_LAYERS against
-    one process's over the gathered inputs, and one batch-BN DP step."""
+    then the batch-BN statistics over the world's group at BN_LAYERS
+    against one process's over the gathered inputs, and one batch-BN DP
+    step."""
     import torch.distributed as dist
     from maskrcnn_tpu_torch.models import mask_rcnn as M
     from maskrcnn_tpu_torch.models import nn
-    from maskrcnn_tpu_torch.parallel import mesh, replica
+    from maskrcnn_tpu_torch.parallel import mesh
     from maskrcnn_tpu_torch.train import step as T
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1984,12 +1988,13 @@ def _dp_gloo_rank(rank, world, store, seed, out, device, base):
 
                 nn.batch_norm = spy
                 try:
-                    with torch.no_grad(), replica.replicas():
+                    with torch.no_grad():
                         M.backbone_fpn(
                             state.params, M.preprocess(shard["images"], cfg),
                             cfg, torch.bfloat16, inference=False,
                             bn_ctx={"use_batch_stats": True,
-                                    "collect": stats})
+                                    "collect": stats,
+                                    "group": dist.group.WORLD})
                 finally:
                     nn.batch_norm = orig
                 rel = {}
@@ -2044,11 +2049,18 @@ def dp(dev, seed, batch, base):
     with open(gloo_out) as f:
         gloo = json.load(f)
     gloo_dir.cleanup()
+    # `dryrun_step` as a user calls it: rank 0 on card 0 over NCCL (it
+    # raises where a rank's step or the DP forward fails its bounds)
+    from maskrcnn_tpu_torch.parallel import mesh
+    t_dry = time.perf_counter()
+    mesh.dryrun_step(1)
+    dryrun_s = time.perf_counter() - t_dry
     emit({"phase": "dp", "devices": torch.cuda.device_count(),
           "detector_equal": {"float32_batch_4": equal[0], "uint8_batch_3":
                              equal[1]}, "launches": launches,
           "nccl_world_1": nccl, "nccl_launches": launches_nccl,
           "gloo_world_2": gloo, "gloo_seconds": gloo_s,
+          "dryrun_step_nccl_1_seconds": dryrun_s,
           "bounds": {"nccl": "each *_ratio <= 1: losses rtol 1e-6 atol "
                      "1e-6, params and momentum rtol 1e-5 atol 1e-6 "
                      "(tests/test_parallel.py, n = 1)",

@@ -10,9 +10,8 @@ of its result.
 Mixed precision as in the JAX package: parameters float32, convolutions and
 matmuls in the compute dtype with the output rounded to it, then the bias
 added in that dtype; BatchNorm (eps 1e-3) in float32, with the moving
-statistics or, in training, the batch's own (inside
-`parallel/replica.py::replicas`, those of the global batch over every
-rank).
+statistics or, in training, the batch's own (with a process group,
+those of the global batch over its ranks).
 """
 
 from __future__ import annotations
@@ -22,9 +21,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
-
-from maskrcnn_tpu_torch.parallel import replica
 
 Params = dict[str, Any]
 
@@ -117,9 +115,26 @@ def conv2d_transpose(x: torch.Tensor, p: Params, *, stride=2,
     return y.to(dtype)
 
 
+class _AllSum(torch.autograd.Function):
+    """The sum over the ranks of a process group; its backward sums the
+    gradient over the ranks too (every rank's loss reads the sum, and the
+    ranks' losses add up)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllSum.apply(grad, ctx.group), None
+
+
 def batch_norm(x: torch.Tensor, p: Params, *, eps: float = 1e-3,
                use_batch_stats: bool = False, collect: dict | None = None,
-               name: str | None = None) -> torch.Tensor:
+               name: str | None = None, group=None) -> torch.Tensor:
     """BatchNormalization (Keras default eps 1e-3), in float32.
 
     By default it normalizes with the stored moving statistics (inference,
@@ -128,19 +143,21 @@ def batch_norm(x: torch.Tensor, p: Params, *, eps: float = 1e-3,
     but the last (the mean and the biased variance, as `jnp.var`): the
     from-scratch training recipe, which never reads the moving statistics.
     `collect` (a dict) records the batch's (mean, var) under `name`, for
-    `train/calibrate.py::calibrate_bn_stats`. Inside
-    `replica.replicas` the batch statistics are the global batch's, as
-    GSPMD normalizes a sharded batch: the mean is the all-reduced sum over
-    the global count, the variance the all-reduced sum of squared
-    deviations from it over the same count (two passes, as `jnp.var`),
-    both differentiable."""
+    `train/calibrate.py::calibrate_bn_stats`. With a process `group`
+    (each rank a shard of the batch) the batch statistics are the global
+    batch's, as GSPMD normalizes a sharded batch: the mean is the
+    all-reduced sum over the global count, the variance the all-reduced
+    sum of squared deviations from it over the same count (two passes, as
+    `jnp.var`), both differentiable."""
     xf = x.float()
+    world = 1 if group is None else dist.get_world_size(group)
     if use_batch_stats or collect is not None:
         axes = tuple(range(xf.dim() - 1))
-        if replica.world_size() > 1 and use_batch_stats:
-            count = xf.numel() // xf.shape[-1] * replica.world_size()
-            mean = replica.all_sum(xf.sum(dim=axes)) / count
-            var = replica.all_sum(((xf - mean) ** 2).sum(dim=axes)) / count
+        if world > 1 and use_batch_stats:
+            count = xf.numel() // xf.shape[-1] * world
+            mean = _AllSum.apply(xf.sum(dim=axes), group) / count
+            var = _AllSum.apply(((xf - mean) ** 2).sum(dim=axes),
+                                group) / count
         else:
             mean = xf.mean(dim=axes)
             var = xf.var(dim=axes, unbiased=False)
@@ -159,12 +176,14 @@ def batch_norm(x: torch.Tensor, p: Params, *, eps: float = 1e-3,
 def bn_apply(x: torch.Tensor, params: Params, name: str,
              bn_ctx: dict | None = None) -> torch.Tensor:
     """BN by layer name: `bn_ctx` None (moving statistics) or
-    {"use_batch_stats": bool, "collect": dict | None}."""
+    {"use_batch_stats": bool, "collect": dict | None, "group": process
+    group | None}."""
     if bn_ctx is None:
         return batch_norm(x, params[name])
     return batch_norm(x, params[name],
                       use_batch_stats=bn_ctx.get("use_batch_stats", False),
-                      collect=bn_ctx.get("collect"), name=name)
+                      collect=bn_ctx.get("collect"), name=name,
+                      group=bn_ctx.get("group"))
 
 
 def depthwise_conv(x: torch.Tensor, p: Params, *, stride: int = 1,

@@ -12,9 +12,10 @@ cards, gloo on the CPU): each rank holds one shard of the global batch and
 the step equals the single-device step over the whole batch, as GSPMD's
 does. The sampling draws are the global batch's, drawn on every rank
 from `step_generator(seed, step)`, and each rank takes its rows; batch
-statistics and the head losses' means span the ranks
-(`parallel/replica.py`); the gradients are summed over the ranks as one
-flat buffer and every rank applies the same optimizer step.
+statistics and the head losses' means span the ranks (the process group
+goes to `compute_gradients`, which hands it to BN in `bn_ctx` and to the
+losses); the gradients are summed over the ranks as one flat buffer and
+every rank applies the same optimizer step.
 """
 
 from __future__ import annotations
@@ -26,8 +27,6 @@ from typing import Any
 import numpy as np
 import torch
 import torch.distributed as dist
-
-from maskrcnn_tpu_torch.parallel import replica
 
 
 def make_mesh(n_devices: int | None = None,
@@ -64,18 +63,19 @@ def shard_batch(devices, images) -> list[torch.Tensor]:
     return [x.to(d) for x, d in zip(images.chunk(n), devices)]
 
 
-def data_parallel_forward(devices, config, params, images,
+def data_parallel_forward(devices, config, replicas, images,
                           paste_size: int | None = None
                           ) -> dict[str, torch.Tensor]:
-    """DP batch inference: each shard's `forward` on its device, the
-    outputs gathered on the first device in batch order. `params` is one
-    param dict or `replicate(devices, params)`."""
+    """DP batch inference: each shard's `forward` on its device with its
+    copy of the params (`replicas = replicate(devices, params)`), the
+    outputs gathered on the first device in batch order (one device: its
+    outputs as they are)."""
     from maskrcnn_tpu_torch.models.mask_rcnn import forward
-    copies = (params if isinstance(params, (list, tuple))
-              else replicate(devices, params))
     outs = [forward(p, x, config, device=d, paste_size=paste_size)
-            for p, x, d in zip(copies, shard_batch(devices, images),
+            for p, x, d in zip(replicas, shard_batch(devices, images),
                                devices)]
+    if len(outs) == 1:
+        return outs[0]
     return {k: torch.cat([o[k].to(devices[0]) for o in outs])
             for k in outs[0]}
 
@@ -93,28 +93,34 @@ def broadcast_state(state, group=None):
 
 def data_parallel_train_step(config, opt, group=None):
     """The DP training step over the ranks of `group` (default: the world):
-    step(state, batch, anchors, seed=0) -> (new state, metrics), `batch`
-    this rank's equal shard of the global batch, `state` the same on every
-    rank (`broadcast_state`). The metrics are the global batch's."""
+    step(state, batch, anchors, seed=0, draws=None) -> (new state,
+    metrics), `batch` this rank's equal shard of the global batch, `state`
+    the same on every rank (`broadcast_state`), `draws` the global batch's
+    (`draw_uniforms`' layout; default: drawn from `step_generator(seed,
+    state.step)`), of which each rank takes its rows. The metrics are the
+    global batch's."""
     from maskrcnn_tpu_torch.train.step import (apply_gradients,
                                                compute_gradients,
                                                draw_uniforms, step_generator)
 
-    def step(state, batch, anchors, *, seed: int = 0):
-        world = dist.get_world_size(group)
-        rank = dist.get_rank(group)
+    g = dist.group.WORLD if group is None else group
+
+    def step(state, batch, anchors, *, seed: int = 0, draws=None):
+        world = dist.get_world_size(g)
+        rank = dist.get_rank(g)
         first = next(iter(next(iter(state.params.values())).values()))
         dev = first.device
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         anchors = torch.as_tensor(anchors).to(dev, torch.float32)
-        b, g = batch["gt_boxes"].shape[:2]
-        draws = draw_uniforms(step_generator(seed, state.step, dev),
-                              b * world, anchors.shape[0],
-                              config.max_proposals + g, dev)
-        draws = {k: v[rank * b:(rank + 1) * b] for k, v in draws.items()}
-        with replica.replicas(group):
-            grads, metrics = compute_gradients(state, batch, anchors, config,
-                                               opt, draws=draws)
+        b, n_gt = batch["gt_boxes"].shape[:2]
+        if draws is None:
+            draws = draw_uniforms(step_generator(seed, state.step, dev),
+                                  b * world, anchors.shape[0],
+                                  config.max_proposals + n_gt, dev)
+        draws = {k: torch.as_tensor(v)[rank * b:(rank + 1) * b].to(dev)
+                 for k, v in draws.items()}
+        grads, metrics = compute_gradients(state, batch, anchors, config,
+                                           opt, draws=draws, group=g)
         names = [(layer, w) for layer, ws in state.params.items()
                  for w in ws]
         flat = torch.cat([
@@ -122,7 +128,7 @@ def data_parallel_train_step(config, opt, group=None):
              if grads.get(layer, {}).get(w) is None
              else grads[layer][w]).reshape(-1).to(torch.float32)
             for layer, w in names])
-        dist.all_reduce(flat, group=group)
+        dist.all_reduce(flat, group=g)
         summed: dict = {}
         offset = 0
         for layer, w in names:
@@ -132,7 +138,7 @@ def data_parallel_train_step(config, opt, group=None):
             offset += p.numel()
         keys = sorted(metrics)
         total = torch.stack([metrics[k].to(torch.float32) for k in keys])
-        dist.all_reduce(total, group=group)
+        dist.all_reduce(total, group=g)
         return (apply_gradients(state, summed, opt),
                 dict(zip(keys, total.unbind())))
 
@@ -156,18 +162,25 @@ def _dryrun_batch(config, b: int) -> dict[str, np.ndarray]:
     }
 
 
-def _dryrun_rank(rank: int, n: int, store_path: str) -> None:
+def _dryrun_rank(rank: int, n: int, store_path: str,
+                 device_type: str) -> None:
     from maskrcnn_tpu_torch.core.anchors import generate_anchors
     from maskrcnn_tpu_torch.core.config import tiny_test_config
-    from maskrcnn_tpu_torch.models.mask_rcnn import init_mask_rcnn
+    from maskrcnn_tpu_torch.models.mask_rcnn import init_mask_rcnn, params_to
     from maskrcnn_tpu_torch.train.step import make_train_state, train_step
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store_path, n),
+    dev = torch.device("cpu")
+    if device_type == "cuda":
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            store=dist.FileStore(store_path, n),
                             rank=rank, world_size=n)
     try:
         config = tiny_test_config()
-        params = init_mask_rcnn(torch.Generator().manual_seed(0), config)
+        params = params_to(init_mask_rcnn(torch.Generator().manual_seed(0),
+                                          config), dev)
         anchors = torch.from_numpy(generate_anchors(config))
         batch = _dryrun_batch(config, n)           # one image per rank
         state0, opt = make_train_state(params, config)
@@ -192,24 +205,34 @@ def _dryrun_rank(rank: int, n: int, store_path: str) -> None:
             f"DP loss diverges from single-device: {loss_delta}"
         assert param_delta < 1e-4, \
             f"DP params diverge from single-device: {param_delta}"
-        out = data_parallel_forward(make_mesh(n, "cpu"), config, params,
+        devices = make_mesh(n, device_type)
+        out = data_parallel_forward(devices, config,
+                                    replicate(devices, params),
                                     batch["images"])
         assert out["detections"].shape[0] == n
         print(f"dryrun: DP train loss={loss:.4f}, inference detections "
-              f"shape={tuple(out['detections'].shape)} over {n} ranks; "
-              f"DP-vs-single parity: |dloss|={loss_delta:.3g}, "
-              f"max|dparam|={param_delta:.3g}", flush=True)
+              f"shape={tuple(out['detections'].shape)} over {n} "
+              f"{device_type} ranks; DP-vs-single parity: "
+              f"|dloss|={loss_delta:.3g}, max|dparam|={param_delta:.3g}",
+              flush=True)
     finally:
         dist.destroy_process_group()
 
 
-def dryrun_step(n_devices: int) -> None:
+def dryrun_step(n_devices: int, device=None) -> None:
     """One DP training step at `tiny_test_config()`, one image per rank,
-    over `n_devices` gloo ranks on the CPU (spawned processes meeting at a
-    FileStore: no port), checked against the single-process step with the
-    JAX package's bounds (loss 5e-2 relative, params 1e-4); then the DP
-    inference path."""
+    checked against the single-process step with the JAX package's bounds
+    (loss 5e-2 relative, params 1e-4); then the DP inference path. The
+    ranks are spawned processes meeting at a FileStore (no port). By
+    default rank i runs on card i over NCCL, and fewer than `n_devices`
+    cards raise; `device="cpu"` runs gloo ranks on the CPU."""
     import torch.multiprocessing as mp
+    device_type = torch.device(device or "cuda").type
+    make_mesh(n_devices, device_type)              # enough cards, or raise
+    if device_type == "cuda":
+        from maskrcnn_tpu_torch.ops import cuda_lib
+        cuda_lib.load()            # built once here, not by every rank
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_dryrun_rank, args=(n_devices, os.path.join(tmp, "store")),
+        mp.spawn(_dryrun_rank, args=(n_devices, os.path.join(tmp, "store"),
+                                     device_type),
                  nprocs=n_devices, join=True)

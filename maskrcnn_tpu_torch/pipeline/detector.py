@@ -18,8 +18,10 @@ import torch
 
 from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
 from maskrcnn_tpu_torch.evalkit import mask_rle
-from maskrcnn_tpu_torch.models.mask_rcnn import (forward, init_mask_rcnn,
-                                                 params_to, resolve_device)
+from maskrcnn_tpu_torch.models.mask_rcnn import (init_mask_rcnn,
+                                                 resolve_device)
+from maskrcnn_tpu_torch.parallel.mesh import (data_parallel_forward,
+                                              make_mesh, replicate)
 from maskrcnn_tpu_torch.pipeline.loader import letterbox_rgb
 from maskrcnn_tpu_torch.pipeline.preprocess import (LetterboxWindow,
                                                     quantize_canvas_u8)
@@ -42,22 +44,20 @@ class MaskRCNNDetector:
     """A config plus its params on one device (default: the card).
 
     `data_parallel`: split each batch over this many devices of
-    `device`'s kind (0: one device, -1: all; `parallel/mesh.py`), the
-    params replicated on each once; `devices` lists them (None: one
-    device)."""
+    `device`'s kind (0: `device` alone, -1: all; `parallel/mesh.py`), the
+    params replicated on each once. `devices` lists the devices and
+    `replicas` the params on each; `params` is the first copy."""
 
     def __init__(self, config: MaskRCNNConfig, params: dict[str, Any],
                  mask_threshold: float = 0.5, device=None,
                  data_parallel: int = 0):
         self.config = config
         self.device = resolve_device(device)
-        self.params = params_to(params, self.device)
         self.mask_threshold = mask_threshold
-        self.devices = None
-        if data_parallel:
-            from maskrcnn_tpu_torch.parallel.mesh import make_mesh, replicate
-            self.devices = make_mesh(data_parallel, self.device.type)
-            self._replicas = replicate(self.devices, self.params)
+        self.devices = (make_mesh(data_parallel, self.device.type)
+                        if data_parallel else [self.device])
+        self.replicas = replicate(self.devices, params)
+        self.params = self.replicas[0]
 
     @classmethod
     def from_random(cls, config: MaskRCNNConfig, seed: int = 0, device=None):
@@ -86,16 +86,8 @@ class MaskRCNNDetector:
         tensor; a tensor already on the device is not copied) -> raw padded
         outputs (normalized coordinates, on the device). `paste_size` also
         pastes full-resolution uint8 masks on the device
-        (`out["pasted"]`)."""
-        if self.devices is not None:
-            return self._run_batch_dp(images, paste_size)
-        return forward(self.params, images, self.config, device=self.device,
-                       paste_size=paste_size)
-
-    def _run_batch_dp(self, images, paste_size=None
-                      ) -> dict[str, torch.Tensor]:
-        from maskrcnn_tpu_torch.parallel.mesh import data_parallel_forward
-
+        (`out["pasted"]`). Over several devices the batch is padded to a
+        multiple of their count and cut into one shard each."""
         images = torch.as_tensor(images)
         b = images.shape[0]
         pad = (-b) % len(self.devices)
@@ -104,7 +96,7 @@ class MaskRCNNDetector:
             images = torch.cat([images, images.new_zeros(
                 (pad, *images.shape[1:]))])
         out = data_parallel_forward(self.devices, self.config,
-                                    self._replicas, images,
+                                    self.replicas, images,
                                     paste_size=paste_size)
         return {k: v[:b] for k, v in out.items()} if pad else out
 

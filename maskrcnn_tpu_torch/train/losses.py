@@ -2,18 +2,17 @@
 `maskrcnn_tpu/train/losses.py`: each a mean over its valid rows, with the
 validity as a mask rather than a filter (static shapes).
 
-Inside `parallel/replica.py::replicas` (a data-parallel step) the head
-losses and the mean over images are each rank's share of the global
-batch's mean: the local sum over the global count, so that the ranks'
-losses add up to the single-device loss of the whole batch. The RPN
-losses stay per-image means."""
+With a process `group` (a data-parallel step, each rank a shard of the
+batch) the head losses and the mean over images are each rank's share of
+the global batch's mean: the local sum over the global count, so that the
+ranks' losses add up to the single-device loss of the whole batch. The
+RPN losses stay per-image means."""
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
-
-from maskrcnn_tpu_torch.parallel import replica
 
 
 def smooth_l1(diff: torch.Tensor) -> torch.Tensor:
@@ -22,18 +21,24 @@ def smooth_l1(diff: torch.Tensor) -> torch.Tensor:
 
 
 def _mean_over(x: torch.Tensor, mask: torch.Tensor,
-               across_replicas: bool = False) -> torch.Tensor:
+               group=None) -> torch.Tensor:
+    """The sum of `x` where `mask` over the count of `mask`, that count
+    summed over the ranks of `group` when one is given."""
     m = mask.to(x.dtype)
-    count = replica.all_sum_detached(m.sum()) if across_replicas else m.sum()
+    count = m.sum()
+    if group is not None:
+        count = count.detach().clone()
+        dist.all_reduce(count, group=group)
     return (x * m).sum() / count.clamp_min(1.0)
 
 
-def mean_over_images(per_image: torch.Tensor) -> torch.Tensor:
-    """The mean of per-image losses (B,) over the global batch."""
-    world = replica.world_size()
-    if world == 1:
+def mean_over_images(per_image: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of per-image losses (B,) over the global batch (the
+    batches of every rank of `group`)."""
+    if group is None:
         return per_image.mean()
-    return per_image.sum() / (per_image.shape[0] * world)
+    return per_image.sum() / (per_image.shape[0]
+                              * dist.get_world_size(group))
 
 
 def rpn_class_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -55,25 +60,25 @@ def rpn_bbox_loss(pred: torch.Tensor, pos_deltas: torch.Tensor,
 
 
 def mrcnn_class_loss(logits: torch.Tensor, class_ids: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+                     valid: torch.Tensor, group=None) -> torch.Tensor:
     """(T, C) class logits vs (T,) targets (0 = background), valid rois."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, class_ids.to(torch.int64)[:, None])[:, 0]
-    return _mean_over(nll, valid, across_replicas=True)
+    return _mean_over(nll, valid, group)
 
 
 def mrcnn_bbox_loss(pred_deltas: torch.Tensor, target_deltas: torch.Tensor,
-                    class_ids: torch.Tensor) -> torch.Tensor:
+                    class_ids: torch.Tensor, group=None) -> torch.Tensor:
     """(T, C, 4) per-class predictions; loss at the target class, positives
     (class > 0) only."""
     ids = class_ids.to(torch.int64)[:, None, None].expand(-1, 1, 4)
     sel = pred_deltas.float().gather(1, ids)[:, 0]
     per = smooth_l1(sel - target_deltas).sum(dim=-1)
-    return _mean_over(per, class_ids > 0, across_replicas=True)
+    return _mean_over(per, class_ids > 0, group)
 
 
 def mrcnn_mask_loss(pred_masks: torch.Tensor, target_masks: torch.Tensor,
-                    class_ids: torch.Tensor) -> torch.Tensor:
+                    class_ids: torch.Tensor, group=None) -> torch.Tensor:
     """(T, m, m, C) sigmoid masks; binary cross-entropy at the target class
     channel, the probabilities clipped to [1e-7, 1 - 1e-7], positives
     only."""
@@ -84,5 +89,4 @@ def mrcnn_mask_loss(pred_masks: torch.Tensor, target_masks: torch.Tensor,
     sel = sel.clamp(eps, 1.0 - eps)
     bce = -(target_masks * torch.log(sel)
             + (1.0 - target_masks) * torch.log(1.0 - sel))
-    return _mean_over(bce.mean(dim=(1, 2)), class_ids > 0,
-                      across_replicas=True)
+    return _mean_over(bce.mean(dim=(1, 2)), class_ids > 0, group)

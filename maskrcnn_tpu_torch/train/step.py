@@ -76,15 +76,16 @@ def draw_uniforms(gen: torch.Generator, batch: int, num_anchors: int,
 
 def compute_losses(params, batch: dict[str, torch.Tensor],
                    anchors: torch.Tensor, config: MaskRCNNConfig,
-                   draws: dict[str, torch.Tensor]):
+                   draws: dict[str, torch.Tensor], group=None):
     """Forward and the five losses for one batch, on the batch's device.
 
     batch: images (B, S, S, 3) RGB [0, 255]; gt_boxes (B, G, 4) normalized;
     gt_class_ids (B, G) int (0 = pad, < 0 crowd); gt_masks (B, G, M, M)
     mini-masks. `draws` from `draw_uniforms`. Returns (total loss,
-    metrics dict of 0-d tensors). Inside `parallel/replica.py::replicas`
-    the batch is this rank's shard and each loss this rank's share of the
-    global batch's (`train/losses.py`): the ranks' losses add up to it."""
+    metrics dict of 0-d tensors). With a process `group` the batch is
+    this rank's shard of the global batch, batch statistics are the global
+    batch's and each loss is this rank's share of the global batch's
+    (`train/losses.py`): the ranks' losses add up to it."""
     dtype = compute_dtype(config)
     images = batch["images"]
     gt_boxes = batch["gt_boxes"].to(torch.float32)
@@ -93,7 +94,8 @@ def compute_losses(params, batch: dict[str, torch.Tensor],
     b = images.shape[0]
     image_hw = (config.image_height, config.image_width)
 
-    bn_ctx = {"use_batch_stats": True} if config.train_bn == "batch" else None
+    bn_ctx = ({"use_batch_stats": True, "group": group}
+              if config.train_bn == "batch" else None)
     x = preprocess(images, config)
 
     def backbone(xx):
@@ -114,8 +116,8 @@ def compute_losses(params, batch: dict[str, torch.Tensor],
         rpn_cls.append(L.rpn_class_loss(rpn_logits[i], t.labels))
         rpn_box.append(L.rpn_bbox_loss(rpn_deltas[i], t.pos_deltas,
                                        t.pos_idx, t.pos_valid))
-    loss_rpn_cls = L.mean_over_images(torch.stack(rpn_cls))
-    loss_rpn_box = L.mean_over_images(torch.stack(rpn_box))
+    loss_rpn_cls = L.mean_over_images(torch.stack(rpn_cls), group)
+    loss_rpn_box = L.mean_over_images(torch.stack(rpn_box), group)
 
     # --- proposals: no gradient through decode and NMS (Matterport) ------
     with torch.no_grad():
@@ -153,8 +155,10 @@ def compute_losses(params, batch: dict[str, torch.Tensor],
     _, pred_deltas, cls_logits = heads_mod.apply_classifier_head(
         params, pooled.reshape((b * t,) + pooled.shape[2:]),
         config.num_classes, dtype=dtype, with_logits=True, bn_ctx=bn_ctx)
-    loss_cls = L.mrcnn_class_loss(cls_logits, flat_class, flat_valid)
-    loss_box = L.mrcnn_bbox_loss(pred_deltas, flat_deltas, flat_class)
+    loss_cls = L.mrcnn_class_loss(cls_logits, flat_class, flat_valid,
+                                  group)
+    loss_box = L.mrcnn_bbox_loss(pred_deltas, flat_deltas, flat_class,
+                                 group)
 
     # --- mask head on the same sampled rois ------------------------------
     mask_pooled = pyramid_roi_align(levels, s_rois, config.mask_pool_size,
@@ -162,7 +166,8 @@ def compute_losses(params, batch: dict[str, torch.Tensor],
     pred_masks = heads_mod.apply_mask_head(
         params, mask_pooled.reshape((b * t,) + mask_pooled.shape[2:]),
         dtype=dtype, bn_ctx=bn_ctx)                  # (B*T, m, m, C)
-    loss_mask = L.mrcnn_mask_loss(pred_masks, flat_masks, flat_class)
+    loss_mask = L.mrcnn_mask_loss(pred_masks, flat_masks, flat_class,
+                                  group)
 
     total = loss_rpn_cls + loss_rpn_box + loss_cls + loss_box + loss_mask
     metrics = {"loss": total, "rpn_class_loss": loss_rpn_cls,
@@ -281,12 +286,13 @@ def apply_gradients(state: TrainState, grads, opt: Optimizer) -> TrainState:
 
 def compute_gradients(state: TrainState, batch, anchors,
                       config: MaskRCNNConfig, opt: Optimizer, *,
-                      seed: int = 0, draws=None):
+                      seed: int = 0, draws=None, group=None):
     """The loss gradients of one step on the device of `state.params`:
     (grads {layer: {weight: tensor or None}}, metrics dict of 0-d
     tensors). Only the leaves `opt` trains require grad (the others'
     gradients would be masked to zero). The sampling scores come from
-    `step_generator(seed, state.step)` unless `draws` are given."""
+    `step_generator(seed, state.step)` unless `draws` are given. `group`:
+    as in `compute_losses`."""
     first = next(iter(next(iter(state.params.values())).values()))
     dev = first.device
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
@@ -299,7 +305,8 @@ def compute_gradients(state: TrainState, batch, anchors,
     params = {layer: {w: v.detach().requires_grad_(
         mask is None or mask[layer][w]) for w, v in ws.items()}
         for layer, ws in state.params.items()}
-    total, metrics = compute_losses(params, batch, anchors, config, draws)
+    total, metrics = compute_losses(params, batch, anchors, config, draws,
+                                    group)
     names = [(layer, w) for layer, ws in params.items()
              for w, v in ws.items() if v.requires_grad]
     got = torch.autograd.grad(total, [params[lw[0]][lw[1]] for lw in names],

@@ -842,3 +842,15 @@ def test_gpu_data_parallel_1_equals_single_device():
     assert sorted(got) == sorted(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.gpu
+def test_gpu_dryrun_step_over_nccl(capfd):
+    """`dryrun_step`'s default: rank i on card i over NCCL, one image a
+    rank, within the JAX package's bounds of the single-process step,
+    then the DP forward over the same cards."""
+    from maskrcnn_tpu_torch.parallel import mesh
+    _card()
+    n = torch.cuda.device_count()
+    mesh.dryrun_step(n)
+    assert f"over {n} cuda ranks" in capfd.readouterr().out

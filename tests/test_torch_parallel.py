@@ -3,11 +3,13 @@
 n times, the analog of the JAX package's virtual host devices) against one
 device, the detector's padding of uneven batches in the batch's own dtype;
 training over 2 gloo ranks (spawned, meeting at a FileStore) against the
-single-process step over the global batch, batch-statistic BN over the
-ranks against one process over the global batch, and the head losses'
-global normalization where the ranks' positive counts differ.
+single-process step over the global batch (frozen BN over 2 steps; batch
+BN with the JAX package's draws, also against the JAX step), batch-statistic
+BN over the ranks against one process over the global batch, and the head
+losses' global normalization where the ranks' positive counts differ.
 
-This file imports no JAX: the spawned ranks import it."""
+This file imports JAX only inside the functions that the test process
+alone runs: the spawned ranks import it."""
 
 import os
 
@@ -21,7 +23,8 @@ from maskrcnn_tpu_torch.core.anchors import generate_anchors
 from maskrcnn_tpu_torch.core.config import tiny_test_config
 from maskrcnn_tpu_torch.models import mask_rcnn as M
 from maskrcnn_tpu_torch.models import nn
-from maskrcnn_tpu_torch.parallel import mesh, replica
+from maskrcnn_tpu_torch.parallel import mesh
+from maskrcnn_tpu_torch.pipeline import detector
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
 from maskrcnn_tpu_torch.pipeline.preprocess import compute_window
 from maskrcnn_tpu_torch.train import losses as L
@@ -32,6 +35,9 @@ F32 = dict(compute_dtype="float32")
 # the exact-f32, frozen-BN config of `tests/test_parallel.py`'s DP step
 TRAIN = dict(compute_dtype="float32", train_sampling_topk="exact",
              train_bn="frozen")
+# the same with batch statistics, the default `train_bn`
+BATCH_BN = dict(TRAIN, train_bn="batch")
+JAX_KEY = 11
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -117,11 +123,11 @@ def test_detector_dp_pads_uint8_as_uint8(monkeypatch):
     seen = []
     forward = mesh.data_parallel_forward
 
-    def spy(devices, config, copies, images, paste_size=None):
+    def spy(devices, config, replicas, images, paste_size=None):
         seen.append((images.dtype, tuple(images.shape)))
-        return forward(devices, config, copies, images, paste_size)
+        return forward(devices, config, replicas, images, paste_size)
 
-    monkeypatch.setattr(mesh, "data_parallel_forward", spy)
+    monkeypatch.setattr(detector, "data_parallel_forward", spy)
     s = cfg.image_height
     rng = np.random.default_rng(1)
     canvases = [rng.uniform(0, 255, (s, s, 3)).astype(np.float32)
@@ -170,13 +176,13 @@ def bn_case():
         rng.standard_normal(x.shape).astype(np.float32))
 
 
-def bn_grads(x, p, cot):
-    """y = batch_norm(x) with batch statistics and d(sum(y * cot)) / d(x,
-    gamma, beta)."""
+def bn_grads(x, p, cot, group=None):
+    """y = batch_norm(x) with batch statistics (over the ranks of `group`)
+    and d(sum(y * cot)) / d(x, gamma, beta)."""
     x = x.clone().requires_grad_(True)
     q = {k: v.clone().requires_grad_(k in ("gamma", "beta"))
          for k, v in p.items()}
-    y = nn.batch_norm(x, q, use_batch_stats=True)
+    y = nn.batch_norm(x, q, use_batch_stats=True, group=group)
     gx, gg, gb = torch.autograd.grad((y * cot).sum(),
                                      [x, q["gamma"], q["beta"]])
     return y.detach(), gx, gg, gb
@@ -199,25 +205,37 @@ def head_loss_case():
             "target_masks": (rng.random((t, 6, 6)) > 0.5)}
 
 
-def head_losses(case, rows=slice(None)):
-    """The three head losses on `rows` and their gradients in the
-    predictions."""
+def head_losses(case, rows=slice(None), group=None):
+    """The three head losses on `rows` (their means over the ranks of
+    `group`) and their gradients in the predictions."""
     f = lambda k: torch.tensor(case[k][rows], dtype=torch.float32)  # noqa
     preds = {k: f(k).requires_grad_(True)
              for k in ("logits", "pred_deltas", "pred_masks")}
     ids = torch.tensor(case["class_ids"][rows])
     losses = torch.stack([
         L.mrcnn_class_loss(preds["logits"], ids,
-                           torch.tensor(case["valid"][rows])),
-        L.mrcnn_bbox_loss(preds["pred_deltas"], f("target_deltas"), ids),
-        L.mrcnn_mask_loss(preds["pred_masks"], f("target_masks"), ids)])
+                           torch.tensor(case["valid"][rows]), group),
+        L.mrcnn_bbox_loss(preds["pred_deltas"], f("target_deltas"), ids,
+                          group),
+        L.mrcnn_mask_loss(preds["pred_masks"], f("target_masks"), ids,
+                          group)])
     grads = torch.autograd.grad(losses.sum(), list(preds.values()))
     return losses.detach(), grads
 
 
-def _rank(rank, world, store, out_dir):
-    """One gloo rank: the BN layer and the head losses inside `replicas`
-    on this rank's rows, then 2 DP training steps on this rank's image."""
+def bn_step_draws(cfg, b):
+    """The uniforms the JAX package's `compute_losses` draws from
+    `PRNGKey(JAX_KEY)` for a batch of `b` (`train_batch`'s 4 GT boxes)."""
+    import jax
+    from tests.test_torch_train import jax_draws
+    return jax_draws(jax.random.PRNGKey(JAX_KEY), b,
+                     generate_anchors(cfg).shape[0], cfg.max_proposals + 4)
+
+
+def _rank(rank, world, store, out_dir, draws):
+    """One gloo rank: the BN layer and the head losses over the world's
+    ranks on this rank's rows, then 2 frozen-BN DP training steps on this
+    rank's image, then one batch-BN step with the global batch's `draws`."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
@@ -226,13 +244,11 @@ def _rank(rank, world, store, out_dir):
         x, p, cot = bn_case()
         rows = slice(2 * rank, 2 * rank + 2)
         res["bn_naive"] = bn_grads(x[rows], p, cot[rows])
-        with replica.replicas():
-            res["bn"] = bn_grads(x[rows], p, cot[rows])
+        res["bn"] = bn_grads(x[rows], p, cot[rows], dist.group.WORLD)
         case = head_loss_case()
         rows = slice(8 * rank, 8 * rank + 8)
         res["heads_naive"] = head_losses(case, rows)
-        with replica.replicas():
-            res["heads"] = head_losses(case, rows)
+        res["heads"] = head_losses(case, rows, dist.group.WORLD)
 
         cfg = tiny_test_config().replace(**TRAIN)
         state, opt = make_train_state(_params(cfg, seed=1), cfg)
@@ -246,6 +262,13 @@ def _rank(rank, world, store, out_dir):
             state, m = step(state, shard, anchors, seed=7)
             metrics.append({k: float(v) for k, v in m.items()})
         res["train"] = (state.params, state.momentum, state.step, metrics)
+
+        cfg = tiny_test_config().replace(**BATCH_BN)
+        state, opt = make_train_state(_params(cfg, seed=1), cfg)
+        state, m = mesh.data_parallel_train_step(cfg, opt)(
+            state, shard, anchors, draws=draws)
+        res["train_batch_bn"] = (state.params, state.momentum,
+                                 {k: float(v) for k, v in m.items()})
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -255,17 +278,18 @@ def _rank(rank, world, store, out_dir):
 def ranks(tmp_path_factory):
     """What each of the 2 ranks computed (`_rank`)."""
     out = tmp_path_factory.mktemp("ranks")
-    mp.spawn(_rank, args=(WORLD, str(out / "store"), str(out)),
+    draws = bn_step_draws(tiny_test_config(), WORLD)
+    mp.spawn(_rank, args=(WORLD, str(out / "store"), str(out), draws),
              nprocs=WORLD, join=True)
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
             for r in range(WORLD)]
 
 
 def test_batch_bn_over_ranks_equals_global_batch(ranks):
-    """Inside `replicas` each rank's BN output and input gradient equal
-    one process's over the global batch on its rows, and the ranks' gamma
-    and beta gradients add up to it (1e-6); without `replicas` (each rank
-    its own statistics) they do not."""
+    """Over the world's group each rank's BN output and input gradient
+    equal one process's over the global batch on its rows, and the ranks'
+    gamma and beta gradients add up to it (1e-6); without the group (each
+    rank its own statistics) they do not."""
     y, gx, gg, gb = bn_grads(*bn_case())
     got = [r["bn"] for r in ranks]
     for name, want, idx in (("y", y, 0), ("dx", gx, 1)):
@@ -280,8 +304,8 @@ def test_batch_bn_over_ranks_equals_global_batch(ranks):
 
 
 def test_head_losses_normalize_over_the_global_batch(ranks):
-    """3 positives on one rank and 1 on the other: inside `replicas` the
-    ranks' head losses add up to the global batch's means and their
+    """3 positives on one rank and 1 on the other: over the world's group
+    the ranks' head losses add up to the global batch's means and their
     gradients equal its, row by row; the mean of per-rank means (each
     rank on its own) is another loss."""
     case = head_loss_case()
@@ -331,5 +355,72 @@ def test_dp_train_steps_match_single_process(ranks):
 
 
 def test_dryrun_step_runs(capfd):
-    mesh.dryrun_step(2)
-    assert "DP-vs-single parity" in capfd.readouterr().out
+    mesh.dryrun_step(2, device="cpu")
+    out = capfd.readouterr().out
+    assert "DP-vs-single parity" in out and "over 2 cpu ranks" in out
+
+
+def test_dryrun_step_asks_for_cards():
+    """By default the ranks run on cards: with fewer than asked it raises
+    before it spawns any."""
+    have = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"have {have}"):
+        mesh.dryrun_step(have + 1)
+
+
+def test_dp_batch_bn_step_matches_single_process_and_jax(ranks):
+    """One batch-BN step (the default `train_bn`: statistics over both
+    ranks' images in every backbone and head BN, and the head losses'
+    shares) over 2 ranks, the sampling fed the JAX package's draws, against
+    the port's single-process step and the JAX `train_step` on the global
+    batch. `tests/test_parallel.py`'s bounds for more than one device
+    (loss 2e-2 relative, params 1e-4) let the mean of per-rank loss means
+    pass here (its losses 2.7e-3 relative and its params 7.7e-6 from the
+    single process), so the losses are held at 1e-4 relative, as in
+    `test_torch_train.py::test_compute_losses_match_jax`, and the params at
+    1e-4 from JAX and 1e-6 from the single process, which differs from the
+    DP step only in the order of the BN statistics' sums (the two stood
+    9.5e-7 / 1.5e-6 and 1.8e-6 / 1.5e-8 apart when this was written).
+    Local BN statistics on each rank miss both bounds by far (loss 3e-2,
+    params 1.4e-4)."""
+    import jax
+    import jax.numpy as jnp
+    from maskrcnn_tpu.core.config import tiny_test_config as jax_tiny
+    from maskrcnn_tpu.train import step as jax_step
+
+    cfg = tiny_test_config().replace(**BATCH_BN)
+    params = _params(cfg, seed=1)
+    batch = train_batch(cfg, WORLD)
+    anchors = generate_anchors(cfg)
+    state, opt = make_train_state(params, cfg)
+    single, sm = train_step(state, batch, anchors, cfg, opt,
+                            draws={k: torch.from_numpy(v) for k, v in
+                                   bn_step_draws(cfg, WORLD).items()})
+    jcfg = jax_tiny().replace(**BATCH_BN)
+    jstate, tx = jax_step.make_train_state(
+        {k: {w: jnp.asarray(v.numpy()) for w, v in ws.items()}
+         for k, ws in params.items()}, jcfg)
+    jnew, jm = jax_step.train_step(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+        jnp.asarray(anchors), jax.random.PRNGKey(JAX_KEY), jcfg, tx)
+
+    dp_params, dp_momentum, dp_metrics = ranks[0]["train_batch_bn"]
+    assert ranks[1]["train_batch_bn"][2] == dp_metrics
+    for name, metrics, tree, atol in (
+            ("single", sm, single.params, 1e-6),
+            ("jax", jm, jax.tree_util.tree_map(np.asarray, jnew.params),
+             1e-4)):
+        assert set(metrics) == set(dp_metrics)
+        for k, v in metrics.items():
+            np.testing.assert_allclose(dp_metrics[k], float(v), rtol=1e-4,
+                                       err_msg=f"{name}: {k}")
+        for layer, ws in tree.items():
+            for w, v in ws.items():
+                np.testing.assert_allclose(
+                    dp_params[layer][w].numpy(), np.asarray(v), rtol=1e-5,
+                    atol=atol, err_msg=f"{name}: {layer}/{w}")
+    for layer, ws in single.momentum.items():
+        for w, v in ws.items():
+            np.testing.assert_allclose(dp_momentum[layer][w].numpy(),
+                                       v.numpy(), rtol=1e-5, atol=2e-2,
+                                       err_msg=f"{layer}/{w}")
