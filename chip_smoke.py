@@ -22,6 +22,21 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            launches and their device times (torch.profiler), K5 and K6
            with their pool pass's time (`pool_pass_ms`); K3 a second time
            at 804 x 1060, whose pooled grid its tile does not divide
+  native   the host native library (`maskrcnn_tpu_torch/native`, g++ at
+           first use): which of librle, libimageio (with or without its
+           libjpeg entry points) and libevalmatch loaded, the build
+           errors, g++'s version, the host CPU and nproc; each native
+           function against its PIL/numpy fallback (letterbox and JPEG
+           decode+letterbox within 2 levels, JPEG decode bit-exact where
+           libjpeg is in, paste flips under 2e-3 of the image per
+           detection, RLE encode/decode and mask IoU and the COCO matcher
+           equal, box IoU within 1e-12), with host ms of both at the
+           serving path's sizes (letterbox 480x640 and 1024x768 -> 1024,
+           JPEG bytes decode+letterbox, 100 detections pasted into
+           768x1024, their encode_region and to_coco_counts, iou_masks
+           100x20, match_all_areas over 400 random cases); fails if a
+           library did not load. The e2e, serve and cli lines carry
+           `host_native`: the parts their host work ran on
   small    the detector forward on the card against the same forward on the
            CPU (plain path), tiny config in float32
   e2e      `MaskRCNNDetector.detect_images` at R101-FPN @ 1024^2, 81 classes,
@@ -64,7 +79,10 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            reply 200); boxes inside their images, every mask RLE of its
            image's size, a batch of more than one request, /healthz
            counting the frames, K3 once and K1 twice per forward;
-           requests/s, latency p50/p95, peak memory
+           requests/s, latency p50/p95, peak memory; then the same
+           traffic in turns on the PIL/numpy host fallback and on the
+           native host path (fallback, native, native, fallback):
+           requests/s and p50 of each turn
   cli      `maskrcnn_tpu_torch.cli.main` in-process over a temporary COCO
            workspace (4 JPEGs with polygon annotations, random weights
            from the seed as .npz): `evaluate --uint8` (both 12-number
@@ -817,7 +835,8 @@ def e2e(dev, seed, batch):
           "detections_score_threshold_0": n_low,
           "max_memory_allocated_bytes": peak, "finite": finite,
           "profile": profile,
-          "launches_default": launches_default, "launches": launches})
+          "launches_default": launches_default, "launches": launches,
+          "host_native": host_native()})
     # every kernel call of this forward goes through its custom op
     # (`maskrcnn_tpu_torch::*`); the `reference_` keys are not of this run:
     # the same forward before the ops, as PERF.md records it
@@ -1316,6 +1335,240 @@ def random_detector(dev, seed, cfg):
     return MaskRCNNDetector(cfg, params, device=dev)
 
 
+# --------------------------------------------------------------------------
+# The host native library
+# --------------------------------------------------------------------------
+
+def host_native() -> dict:
+    """Which of the native library's parts the host paths run on."""
+    from maskrcnn_tpu_torch import native
+    imageio = native.get_imageio_lib()
+    return {"rle": native.get_rle_lib() is not None,
+            "evalmatch": native.get_evalmatch_lib() is not None,
+            "imageio": imageio is not None,
+            "imageio_jpeg": imageio is not None and imageio.has_jpeg}
+
+
+class host_fallback:
+    """Inside it every getter of the native library returns None: the
+    PIL/numpy paths the callers take where the library did not build."""
+
+    def __enter__(self):
+        from maskrcnn_tpu_torch import native
+        from maskrcnn_tpu_torch.evalkit import cocoeval, mask_rle
+        from maskrcnn_tpu_torch.pipeline import loader
+        self.saved = [(m, a, getattr(m, a)) for m, a in (
+            (loader, "get_imageio_lib"), (native, "get_imageio_lib"),
+            (mask_rle, "get_rle_lib"), (cocoeval, "get_evalmatch_lib"))]
+        for m, a, _ in self.saved:
+            setattr(m, a, lambda: None)
+
+    def __exit__(self, *exc):
+        for m, a, f in self.saved:
+            setattr(m, a, f)
+
+
+def host_ms(fn, reps: int = 3) -> tuple[float, object]:
+    """Median host wall ms of `fn()` over `reps` calls after one warm-up,
+    and its last result."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def host_cpu() -> dict:
+    """The host CPU as /proc/cpuinfo reports it, and the cores this
+    process may run on."""
+    import os
+    info = {"nproc": len(os.sched_getaffinity(0))}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key = line.split(":")[0].strip()
+            if key in ("model name", "vendor_id", "cpu family",
+                       "model") and key not in info:
+                info[key] = line.split(":", 1)[1].strip()
+    return info
+
+
+def random_boxes(rng, n, h, w):
+    """`n` (y1, x1, y2, x2) pixel boxes of 8..min(h, w)/2 a side, partly
+    outside the frame for some."""
+    side = rng.uniform(8, min(h, w) / 2, (n, 2))
+    y1 = rng.uniform(-20, h - 8, n)
+    x1 = rng.uniform(-20, w - 8, n)
+    return np.stack([y1, x1, y1 + side[:, 0], x1 + side[:, 1]], 1)
+
+
+def match_dataset(rng, cases=400):
+    """A seeded random COCO matching workload: `cases` (image, category)
+    pairs of 1..100 detections against 1..20 gt, sparse IoUs, some crowd
+    and ignored gt, areas across the small/medium/large ranges."""
+    from maskrcnn_tpu_torch.evalkit.cocoeval import AREA_RNG
+    rngs = np.asarray(list(AREA_RNG.values()))
+    out = []
+    for _ in range(cases):
+        d, g = int(rng.integers(1, 101)), int(rng.integers(1, 21))
+        ious = rng.uniform(0, 1, (d, g))
+        ious[rng.random((d, g)) < 0.7] = 0.0
+        out.append((ious, rng.uniform(0, 200 ** 2, g), rng.random(g) < 0.1,
+                    rng.random(g) < 0.05, rng.uniform(0, 200 ** 2, d), rngs))
+    return out
+
+
+def native_phase(seed, size=1024, n_masks=100, image_hw=(768, 1024)):
+    """The host native library on the card's machine (`maskrcnn_tpu_torch/
+    native`, g++): which libraries built and why not, each native function
+    against its PIL/numpy fallback within the JAX tests' budgets, and
+    host ms of both at the serving path's sizes."""
+    import os
+    from maskrcnn_tpu_torch import native
+    from maskrcnn_tpu_torch.evalkit import cocoeval, mask_rle
+    from maskrcnn_tpu_torch.pipeline import detector, loader
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True)
+    status = host_native()
+    errors = native.native_errors()
+    libs = {}
+    for name, get in (("rle", native.get_rle_lib),
+                      ("imageio", native.get_imageio_lib),
+                      ("evalmatch", native.get_evalmatch_lib)):
+        lib = get()
+        libs[name] = None if lib is None else os.path.basename(lib._name)
+    head = {"phase": "native", "host_native": status, "libraries": libs,
+            "build_errors": errors,
+            "gxx": (gxx.stdout or gxx.stderr).splitlines()[:1],
+            "cpu": host_cpu(), "nvidia_smi": nvidia_smi_line()}
+    missing = [k for k in ("rle", "evalmatch", "imageio") if not status[k]]
+    if missing:
+        emit(head)
+        raise AssertionError(f"native libraries {missing} did not load: "
+                             f"{errors}")
+
+    rng = np.random.default_rng(seed + 9)
+    checks, ms = {}, {}
+
+    def both(name, fn):
+        """`fn()` on the native path and on the fallback, timed."""
+        nat_ms, nat = host_ms(fn)
+        with host_fallback():
+            fb_ms, fb = host_ms(fn)
+        ms[name] = {"native_ms": nat_ms, "fallback_ms": fb_ms}
+        return nat, fb
+
+    # letterbox (<= 2 levels: tests/test_imageio.py)
+    for h, w in ((480, 640), (1024, 768)):
+        img = synthetic_photo(rng, (h, w, 3))
+        (nc, nw), (fc, fw) = both(f"letterbox_{h}x{w}_to_{size}",
+                                  lambda: loader.letterbox_rgb(img, size))
+        checks[f"letterbox_{h}x{w}"] = {
+            "max_abs_diff": float(np.abs(nc - fc).max()), "budget": 2.0,
+            "windows_equal": nw == fw}
+    # JPEG bytes -> decode (bit-exact where libjpeg is in) and letterbox
+    img = synthetic_photo(rng, (480, 640, 3))
+    jpeg = encode_image(img, "JPEG")
+    nd, fd = both("decode_jpeg_bytes_480x640",
+                  lambda: loader.decode_rgb_bytes(jpeg))
+    (nc, nw), (fc, fw) = both(f"decode_letterbox_jpeg_bytes_480x640_to_"
+                              f"{size}",
+                              lambda: loader.load_letterboxed_bytes(jpeg,
+                                                                    size))
+    checks["decode_jpeg_bytes"] = {
+        "max_abs_diff": int(np.abs(nd.astype(int) - fd).max()),
+        "budget": 0 if status["imageio_jpeg"] else "PIL on both sides"}
+    checks["decode_letterbox_jpeg_bytes"] = {
+        "max_abs_diff": float(np.abs(nc - fc).max()), "budget": 2.0,
+        "windows_equal": nw == fw}
+    # 100 detections pasted into a serving-size image (flips < 2e-3 of the
+    # image per detection: tests/test_imageio.py), then RLE
+    ih, iw = image_hw
+    soft = rng.uniform(0, 1, (n_masks, 28, 28)).astype(np.float32)
+    boxes = random_boxes(rng, n_masks, ih, iw)
+
+    def paste_all():
+        return [detector.paste_mask_region(m, b, image_hw)
+                for m, b in zip(soft, boxes)]
+
+    nat, fb = both(f"paste_mask_region_x{n_masks}_{ih}x{iw}", paste_all)
+    flips = [int((a[0] != b[0]).sum()) for a, b in zip(nat, fb)]
+    checks["paste_mask_region"] = {
+        "regions_same_place": all(a[1:] == b[1:] and a[0].shape == b[0].shape
+                                  for a, b in zip(nat, fb)),
+        "max_flip_share": max(flips) / (ih * iw), "budget": 2e-3,
+        "flipped_pixels": sum(flips),
+        "pasted_pixels": int(sum(a[0].sum() for a in nat))}
+    encoded, _ = both(f"encode_region_x{n_masks}", lambda: [
+        mask_rle.encode_region(r, y, x, ih, iw) for r, y, x in nat])
+    strings, _ = both(f"to_coco_counts_x{n_masks}", lambda: [
+        mask_rle.to_coco_counts(r) for r in encoded])
+    full = [np.zeros(image_hw, np.uint8) for _ in range(20)]
+    for m, (r, y, x) in zip(full, nat[:20]):
+        m[y:y + r.shape[0], x:x + r.shape[1]] = r
+    ne, fe = both("encode_full_canvas_x20", lambda: [mask_rle.encode(m)
+                                                    for m in full])
+    nd, fd = both("decode_x20", lambda: [mask_rle.decode(r) for r in ne])
+    gt = ne
+    crowd = (np.arange(len(gt)) % 7 == 0).astype(bool)
+    ni, fi = both(f"iou_masks_{n_masks}x{len(gt)}",
+                  lambda: mask_rle.iou_masks(encoded, gt, crowd))
+    bd = np.concatenate([boxes[:, 1::-1], boxes[:, 3:1:-1]
+                         - boxes[:, 1::-1]], 1)
+    nb, fbx = both(f"iou_boxes_{n_masks}x{len(gt)}",
+                   lambda: mask_rle.iou_boxes(bd, bd[:len(gt)], crowd))
+    checks["rle"] = {
+        "encode_equal": all(np.array_equal(a.counts, b.counts)
+                            for a, b in zip(ne, fe)),
+        "encode_region_equals_encode": all(
+            np.array_equal(a.counts, b.counts)
+            for a, b in zip(encoded[:20], ne)),
+        "decode_equal": all(np.array_equal(a, b) for a, b in zip(nd, fd)),
+        "decode_round_trip": all(np.array_equal(a, m)
+                                 for a, m in zip(nd, full)),
+        "iou_masks_equal": bool(np.array_equal(ni, fi)),
+        # float64 arithmetic: g++ contracts `a + b - x * y` into one FMA
+        # under -march=native and numpy does not, so the two may differ in
+        # the last bit; the port's native bits equal the JAX package's
+        # (tests/test_torch_native.py)
+        "iou_boxes_max_abs_diff": float(np.abs(nb - fbx).max()),
+        "iou_boxes_budget": 1e-12,
+        "counts_chars": sum(len(s) for s in strings)}
+    cases = match_dataset(rng)
+    nm, fm = both(f"match_all_areas_{len(cases)}_cases", lambda: [
+        cocoeval.match_all_areas(*c) for c in cases])
+    checks["match_all_areas"] = {
+        "cases": len(cases), "detections": sum(c[0].shape[0]
+                                               for c in cases),
+        "equal": all(np.array_equal(a[k], b[k]) for a, b in zip(nm, fm)
+                     for k in ("dtm", "d_ignore", "n_gt")),
+        "matched": int(sum((a["dtm"] >= 0).sum() for a in nm))}
+    head.update({"checks": checks, "host_ms": ms,
+                 "reps": "median of 3 after 1 warm-up",
+                 # numpy/Python in both packages: no native variant
+                 "no_native_path": [f"encode_region_x{n_masks}",
+                                    f"to_coco_counts_x{n_masks}"]})
+    emit(head)
+    bad = [k for k in ("letterbox_480x640", "letterbox_1024x768",
+                       "decode_letterbox_jpeg_bytes")
+           if not (checks[k]["max_abs_diff"] <= 2.0
+                   and checks[k]["windows_equal"])]
+    if status["imageio_jpeg"] and checks["decode_jpeg_bytes"][
+            "max_abs_diff"] != 0:
+        bad.append("decode_jpeg_bytes")
+    p = checks["paste_mask_region"]
+    if not (p["regions_same_place"] and p["max_flip_share"] < 2e-3):
+        bad.append("paste_mask_region")
+    bad += [f"rle {k}" for k, v in checks["rle"].items() if v is False]
+    if not checks["rle"]["iou_boxes_max_abs_diff"] <= 1e-12:
+        bad.append("rle iou_boxes")
+    if not checks["match_all_areas"]["equal"]:
+        bad.append("match_all_areas")
+    if bad:
+        raise AssertionError(f"native against fallback: {bad}")
+
+
 # the request bodies: mixed sizes, JPEG and PNG, one grayscale, one RGBA
 SERVE_BODIES = (((480, 640, 3), "JPEG"), ((640, 480, 3), "PNG"),
                 ((768, 1024, 3), "JPEG"), ((300, 500, 3), "PNG"),
@@ -1328,6 +1581,7 @@ def serve(dev, seed, batch, base, rounds=2):
     """`pipeline/serve.make_server` on a thread, `base` config (the default
     one: unfused heads) at score threshold 0: 8 concurrent POST /detect
     from 8 threads, `rounds` times over, then one malformed body."""
+    import contextlib
     import threading
     import urllib.error
     import urllib.request
@@ -1372,6 +1626,24 @@ def serve(dev, seed, batch, base, rounds=2):
         wall = time.perf_counter() - t0
         launches = dict(cuda_lib.launches)                     # main path
         peak = torch.cuda.max_memory_allocated()
+        forwards, frames = worker.batches, worker.frames
+        batch_counts = dict(worker.batch_size_counts)
+        # the same traffic on the native host path and on its PIL/numpy
+        # fallback in turns (fallback, native, native, fallback), `rounds`
+        # rounds each: what the native library moves end to end
+        host_ab = {"native": [], "fallback": []}
+        for arm in ("fallback", "native", "native", "fallback"):
+            with host_fallback() if arm == "fallback" else \
+                    contextlib.nullcontext():
+                t1 = time.perf_counter()
+                got = []
+                for _ in range(rounds):
+                    with ThreadPoolExecutor(len(bodies)) as pool:
+                        got += list(pool.map(post, bodies))
+                host_ab[arm].append({
+                    "requests_per_s": len(got) / (time.perf_counter() - t1),
+                    "latency_ms_p50": float(np.median([g[2] for g in got])),
+                    "ok": all(g[0] == 200 for g in got)})
         bad_code, bad_body, _ = post(b"this is not an image")
         with urllib.request.urlopen(f"http://{host}:{port}/healthz",
                                     timeout=60) as r:
@@ -1400,7 +1672,6 @@ def serve(dev, seed, batch, base, rounds=2):
                 rle["counts"], *rle["size"]))
             if m.shape != (h, w):
                 errors.append(f"request {i}: mask {m.shape} for {h}x{w}")
-    forwards = worker.batches
     lat = np.asarray([ms for _, _, ms in replies])
     emit({"phase": "serve", "config": describe(det.config)
           + ", unfused heads, score threshold 0, uint8_wire",
@@ -1411,22 +1682,26 @@ def serve(dev, seed, batch, base, rounds=2):
           "latency_ms_p95": float(np.percentile(lat, 95)),
           "server_latency_ms_p50": float(np.median(
               [b["latency_ms"] for c, b, _ in replies if c == 200] or [0])),
-          "batch_size_counts": worker.batch_size_counts,
+          "batch_size_counts": batch_counts,
           "forwards": forwards, "launches": launches,
           "detections_per_reply": n_dets, "healthz": health,
           "malformed": [bad_code, bad_body],
-          "device": str(det.device),
+          "device": str(det.device), "host_native": host_native(),
+          "host_native_vs_fallback": host_ab,
           "max_memory_allocated_bytes": peak})
+    if not all(r["ok"] for arm in host_ab.values() for r in arm):
+        errors.append(f"a reply of the native/fallback turns failed: "
+                      f"{host_ab}")
     if errors:
         raise AssertionError(f"serve: {errors[:5]}")
     if bad_code != 500:
         raise AssertionError(f"malformed request answered {bad_code}")
     if det.device.type != "cuda":
         raise AssertionError(f"served on {det.device}")
-    if not any(n > 1 for n in worker.batch_size_counts):
+    if not any(n > 1 for n in batch_counts):
         raise AssertionError("no batch of more than one request formed: "
-                             f"{worker.batch_size_counts}")
-    if health["frames"] != len(replies) or worker.frames != len(replies):
+                             f"{batch_counts}")
+    if health["frames"] != worker.frames or frames != len(replies):
         raise AssertionError(f"healthz counted {health['frames']} frames "
                              f"for {len(replies)} requests")
     if launches["stem"] != forwards or launches["nms"] != 2 * forwards:
@@ -1595,7 +1870,8 @@ def cli(dev, seed, batch, base):
                     "stdout": out_train.splitlines()[-6:]},
           "train_resume": {"seconds": s_resume, "launches": l_resume,
                            "stdout": out_resume.splitlines()[-4:],
-                           "state_step": state_step}})
+                           "state_step": state_step},
+          "host_native": host_native()})
     problems = []
     if "train state saved" not in out_train or "BN statistics calibrated" \
             not in out_train or not np.abs(
@@ -2273,6 +2549,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    native_phase(args.seed)
     check_small_forward(dev, args.seed)
     launches = e2e(dev, args.seed, args.batch)
     torch.cuda.empty_cache()

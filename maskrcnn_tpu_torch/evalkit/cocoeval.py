@@ -1,7 +1,8 @@
 """COCO-style AP/AR evaluation (bbox + segm), pycocotools-compatible.
-Port of `maskrcnn_tpu/evalkit/cocoeval.py` on its vectorised numpy
-matching path (the JAX package also has a C++ matcher with the same
-semantics).
+Port of `maskrcnn_tpu/evalkit/cocoeval.py`. The matching hot loop runs in
+native code (`native/src/evalmatch.cpp`, one call per (category, image)
+covering all areas x thresholds); a vectorised numpy path gives the same
+semantics without a toolchain (`match_all_areas(..., force_numpy=True)`).
 
 Protocol details matched exactly:
   * area-range bounds are INCLUSIVE on both ends (a gt of area 32² is
@@ -22,6 +23,7 @@ import numpy as np
 
 from maskrcnn_tpu_torch.evalkit import mask_rle as M
 from maskrcnn_tpu_torch.evalkit.coco import COCODataset
+from maskrcnn_tpu_torch.native import get_evalmatch_lib, p_f64, p_i64, p_u8
 
 IOU_THRS = np.round(np.arange(0.5, 0.951, 0.05), 2)      # 10 thresholds
 REC_THRS = np.round(np.arange(0.0, 1.001, 0.01), 2)      # 101 recall points
@@ -69,7 +71,7 @@ def _img_ious(dataset: COCODataset, gts, dts, img_id, iou_type: str):
 
 
 def match_all_areas(ious, g_areas, g_crowd, g_ignore_flag, d_areas,
-                    area_rngs, iou_thrs=IOU_THRS):
+                    area_rngs, iou_thrs=IOU_THRS, *, force_numpy=False):
     """Greedy matching for one (category, image) over every (area range,
     IoU threshold) pair.
 
@@ -96,6 +98,24 @@ def match_all_areas(ious, g_areas, g_crowd, g_ignore_flag, d_areas,
     g_ign = (g_ignore_flag | g_crowd)[None, :] | (
         (g_areas[None, :] < lo) | (g_areas[None, :] > hi))     # (A,G)
     d_out = (d_areas[None, :] < lo) | (d_areas[None, :] > hi)  # (A,D)
+
+    lib = None if force_numpy else get_evalmatch_lib()
+    if lib is not None:
+        dtm = np.full((A, T, D), -1, np.int64)
+        d_ignore = np.zeros((A, T, D), np.uint8)
+        n_gt = np.zeros(A, np.int64)
+        lib.eval_match(
+            ious.ctypes.data_as(p_f64), D, G,
+            np.ascontiguousarray(g_ign, np.uint8).ctypes.data_as(p_u8),
+            np.ascontiguousarray(g_crowd, np.uint8).ctypes.data_as(p_u8),
+            np.ascontiguousarray(d_out, np.uint8).ctypes.data_as(p_u8), A,
+            np.ascontiguousarray(iou_thrs, np.float64).ctypes.data_as(p_f64),
+            T,
+            dtm.ctypes.data_as(p_i64),
+            d_ignore.ctypes.data_as(p_u8),
+            n_gt.ctypes.data_as(p_i64))
+        return {"dtm": dtm, "d_ignore": d_ignore.astype(bool),
+                "n_gt": n_gt}
 
     # Vectorized numpy path: loop over detections (score order is the
     # sequential dependency), broadcast over (A, T, G).

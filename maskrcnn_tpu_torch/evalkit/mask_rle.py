@@ -1,6 +1,7 @@
 """COCO mask utilities: RLE encode/decode, IoU, polygon rasterization.
-Port of `maskrcnn_tpu/evalkit/mask_rle.py` on its numpy paths (the JAX
-package runs the same functions in its C++ library where that builds).
+Port of `maskrcnn_tpu/evalkit/mask_rle.py`: hot paths run in the native C++
+core (`maskrcnn_tpu_torch/native`); every function has a numpy fallback, taken
+when that library did not build.
 
 RLE convention matches COCO: column-major masks, runs alternating
 background/foreground starting with background; the serialized form is
@@ -9,9 +10,12 @@ COCO's compressed LEB128-with-sign string.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import numpy as np
+
+from maskrcnn_tpu_torch.native import get_rle_lib
 
 
 class RLE:
@@ -29,7 +33,23 @@ class RLE:
 def encode(mask: np.ndarray) -> RLE:
     """(h, w) binary mask -> RLE (column-major run counts)."""
     h, w = mask.shape
+    lib = get_rle_lib()
+    if lib is not None and mask.flags.c_contiguous and mask.dtype in (
+            np.dtype(np.uint8), np.dtype(bool)):
+        # strided native walk: no Fortran-order copy of the canvas
+        counts = np.empty(h * w + 1, np.uint32)
+        n = lib.rle_encode_rowmajor(
+            mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w,
+            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+        return RLE(h, w, counts[:n].copy())
     col = np.asfortranarray(mask != 0).astype(np.uint8).reshape(-1, order="F")
+    if lib is not None:
+        counts = np.empty(h * w + 1, np.uint32)
+        n = lib.rle_encode(
+            col.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w,
+            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+        return RLE(h, w, counts[:n].copy())
+    # numpy fallback
     changes = np.flatnonzero(np.diff(col)) + 1
     edges = np.concatenate([[0], changes, [h * w]])
     counts = np.diff(edges)
@@ -82,6 +102,14 @@ def encode_region(region: np.ndarray, y0: int, x0: int,
 
 def decode(rle: RLE) -> np.ndarray:
     """RLE -> (h, w) uint8 mask."""
+    lib = get_rle_lib()
+    if lib is not None:
+        out = np.empty(rle.h * rle.w, np.uint8)
+        lib.rle_decode(
+            rle.counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            len(rle.counts), rle.h, rle.w,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        return out.reshape(rle.h, rle.w, order="F")
     vals = np.zeros(len(rle.counts), np.uint8)
     vals[1::2] = 1
     out = np.repeat(vals, rle.counts.astype(np.int64))
@@ -93,6 +121,14 @@ def area(rle: RLE) -> int:
     return int(rle.counts[1::2].astype(np.uint64).sum())
 
 
+def _pack(rles: Sequence[RLE]):
+    counts = (np.concatenate([r.counts for r in rles])
+              if rles else np.zeros(0, np.uint32))
+    lens = np.asarray([len(r.counts) for r in rles], np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    return np.ascontiguousarray(counts), offs, lens
+
+
 def iou_masks(dt: Sequence[RLE], gt: Sequence[RLE],
               iscrowd: Sequence[bool] | None = None) -> np.ndarray:
     """Pairwise IoU (len(dt), len(gt)). Crowd GT: inter / dt_area."""
@@ -101,6 +137,21 @@ def iou_masks(dt: Sequence[RLE], gt: Sequence[RLE],
         return np.zeros((ndt, ngt))
     crowd = np.asarray(
         iscrowd if iscrowd is not None else [0] * ngt, np.uint8)
+    lib = get_rle_lib()
+    if lib is not None:
+        dc, do, dl = _pack(dt)
+        gc, go, gl = _pack(gt)
+        out = np.empty((ndt, ngt), np.float64)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.rle_iou_matrix(
+            dc.ctypes.data_as(u32p), do.ctypes.data_as(i64p),
+            dl.ctypes.data_as(i64p), ndt,
+            gc.ctypes.data_as(u32p), go.ctypes.data_as(i64p),
+            gl.ctypes.data_as(i64p), ngt,
+            crowd.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+        return out
     out = np.zeros((ndt, ngt))
     dm = [decode(r).astype(bool) for r in dt]
     gm = [decode(r).astype(bool) for r in gt]
@@ -125,6 +176,16 @@ def iou_boxes(dt: np.ndarray, gt: np.ndarray,
         return np.zeros((ndt, ngt))
     crowd = np.asarray(
         iscrowd if iscrowd is not None else [0] * ngt, np.uint8)
+    lib = get_rle_lib()
+    if lib is not None:
+        out = np.empty((ndt, ngt), np.float64)
+        f64p = ctypes.POINTER(ctypes.c_double)
+        lib.bbox_iou_matrix(
+            np.ascontiguousarray(dt).ctypes.data_as(f64p), ndt,
+            np.ascontiguousarray(gt).ctypes.data_as(f64p), ngt,
+            crowd.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            out.ctypes.data_as(f64p))
+        return out
     out = np.zeros((ndt, ngt))
     for i in range(ndt):
         ax, ay, aw, ah = dt[i]
@@ -142,17 +203,27 @@ def iou_boxes(dt: np.ndarray, gt: np.ndarray,
 
 def from_polygons(polys: Sequence[Sequence[float]], h: int, w: int) -> RLE:
     """COCO polygon segmentation ([[x0,y0,x1,y1,...], ...]) -> merged RLE."""
+    lib = get_rle_lib()
     merged = np.zeros((h, w), np.uint8)
     for poly in polys:
         xy = np.asarray(poly, np.float64)
         if xy.size < 6:
             continue
-        merged |= _poly_rasterize_np(xy.reshape(-1, 2), h, w)
+        if lib is not None:
+            out = np.empty(h * w, np.uint8)
+            lib.poly_rasterize(
+                np.ascontiguousarray(xy).ctypes.data_as(
+                    ctypes.POINTER(ctypes.c_double)),
+                xy.size // 2, h, w,
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+            merged |= out.reshape(h, w, order="F")
+        else:
+            merged |= _poly_rasterize_np(xy.reshape(-1, 2), h, w)
     return encode(merged)
 
 
 def _poly_rasterize_np(pts: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Even-odd scanline fill at pixel centers."""
+    """Even-odd scanline fill at pixel centers (numpy fallback)."""
     mask = np.zeros((h, w), np.uint8)
     xs, ys = pts[:, 0], pts[:, 1]
     n = len(pts)

@@ -1,8 +1,9 @@
 """User-facing detector: params on the card -> forward -> unmold on the host.
 Port of `maskrcnn_tpu/pipeline/detector.py` (one device, or every batch
-split over several with `data_parallel`; masks pasted on the host with
-PIL's bilinear resample, as full boolean canvases or as COCO RLE of the
-box region only, or on the device by `run_batch(..., paste_size=S)`).
+split over several with `data_parallel`; masks pasted on the host by the
+native library, PIL's bilinear resample its fallback, as full boolean
+canvases or as COCO RLE of the box region only, or on the device by
+`run_batch(..., paste_size=S)`).
 
     det = MaskRCNNDetector.from_checkpoint(MaskRCNNConfig(), "ckpt.npz")
     results = det.detect_images([img1, img2])   # list of list[Detection]
@@ -210,18 +211,55 @@ def paste_mask_region(mask: np.ndarray, box, image_shape,
                       threshold: float = 0.5
                       ) -> tuple[np.ndarray, int, int]:
     """Only the clipped box region of `paste_mask`:
-    ((yy2-yy1, xx2-xx1) bool, yy1, xx1)."""
+    ((yy2-yy1, xx2-xx1) bool, yy1, xx1). The canvas is zero everywhere
+    else, so its consumer (`mask_rle.encode_region`) never builds or scans
+    the full image: O(box area) per detection on the native path."""
     yy1, xx1, yy2, xx2 = paste_window(box, image_shape)
     if yy1 >= yy2 or xx1 >= xx2:
         return np.zeros((0, 0), bool), yy1, xx1
+
+    from maskrcnn_tpu_torch.native import get_imageio_lib
+
+    lib = get_imageio_lib()
+    if lib is not None:
+        import ctypes
+
+        m = np.ascontiguousarray(mask, np.float32)
+        region = np.empty((yy2 - yy1, xx2 - xx1), np.uint8)
+        rc = lib.img_paste_mask_region(
+            m.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), m.shape[0],
+            float(box[0]), float(box[1]), float(box[2]), float(box[3]),
+            image_shape[0], image_shape[1], float(threshold),
+            region.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            xx2 - xx1)
+        if rc == 0:
+            return region.view(bool), yy1, xx1
+
     full = paste_mask(mask, box, image_shape, threshold)
     return full[yy1:yy2, xx1:xx2], yy1, xx1
 
 
 def paste_mask(mask: np.ndarray, box, image_shape,
                threshold: float = 0.5) -> np.ndarray:
-    """Scale an (m, m) soft mask into its box with PIL bilinear and paste it
-    into a full-size boolean canvas (Matterport `unmold_mask`)."""
+    """Scale an (m, m) soft mask into its box and paste it into a full-size
+    boolean canvas (Matterport `unmold_mask`): in the native library where
+    it built, else with the PIL bilinear resample that it replicates."""
+    from maskrcnn_tpu_torch.native import get_imageio_lib
+
+    lib = get_imageio_lib()
+    if lib is not None:
+        import ctypes
+
+        m = np.ascontiguousarray(mask, np.float32)
+        canvas = np.empty(image_shape, np.uint8)
+        rc = lib.img_paste_mask(
+            m.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), m.shape[0],
+            float(box[0]), float(box[1]), float(box[2]), float(box[3]),
+            image_shape[0], image_shape[1], float(threshold),
+            canvas.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        if rc == 0:
+            return canvas.view(bool)
+
     from PIL import Image
 
     oy1, ox1, oy2, ox2 = box

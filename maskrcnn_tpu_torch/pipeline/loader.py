@@ -1,11 +1,14 @@
-"""Host-side image loader, port of `maskrcnn_tpu/pipeline/loader.py` on its
-PIL path: decode to RGB, letterbox to the square network input, and a
-threaded prefetch that yields in input order, so the decode of batch t+1
-overlaps the card's work on batch t.
+"""Host-side image loader, port of `maskrcnn_tpu/pipeline/loader.py`:
+decode to RGB, letterbox to the square network input, and a threaded
+prefetch that yields in input order, so the decode of batch t+1 overlaps
+the card's work on batch t.
 
-The JAX package decodes JPEGs and resamples in its own C++ library where
-that builds (`maskrcnn_tpu/native`), with PIL as the fallback; the port
-takes the PIL path throughout (`letterbox_numpy`).
+JPEG decode and the letterbox resample run in C++
+(`maskrcnn_tpu_torch/native`, `src/imageio.cpp`; ctypes releases the
+interpreter lock, so the prefetch threads decode in parallel). Every entry
+point falls back to PIL when that library did not build, and for other
+formats (JPEGs too where the library was built without libjpeg); the two
+agree within ~1 level (`letterbox_numpy`).
 
     canvas, window = load_letterboxed("img.jpg", 1024)
     for key, canvas, window in PrefetchLoader(((i, p) for i, p in ...), 1024):
@@ -14,6 +17,7 @@ takes the PIL path throughout (`letterbox_numpy`).
 
 from __future__ import annotations
 
+import ctypes
 import io
 import os
 from collections import deque
@@ -22,12 +26,35 @@ from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 
+from maskrcnn_tpu_torch.native import get_imageio_lib
 from maskrcnn_tpu_torch.pipeline.preprocess import (LetterboxWindow,
                                                     letterbox_numpy)
 
+_JPEG_EXTS = (".jpg", ".jpeg", ".jpe", ".jfif")
+
+
+def _window_from_meta(meta: np.ndarray) -> LetterboxWindow:
+    return LetterboxWindow(
+        y1=int(meta[0]), x1=int(meta[1]), y2=int(meta[2]), x2=int(meta[3]),
+        scale=float(meta[4]), orig_height=int(meta[5]),
+        orig_width=int(meta[6]))
+
 
 def decode_rgb(path: str) -> np.ndarray:
-    """Decode an image file to (H, W, 3) uint8 RGB."""
+    """Decode an image file to (H, W, 3) uint8 RGB (native for JPEG)."""
+    lib = get_imageio_lib()
+    if (lib is not None and lib.has_jpeg
+            and path.lower().endswith(_JPEG_EXTS)):
+        hw = np.zeros(2, np.int64)
+        p_hw = hw.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+        if lib.img_jpeg_dims(path.encode(), p_hw) == 0 and hw.min() > 0:
+            out = np.empty((int(hw[0]), int(hw[1]), 3), np.uint8)
+            rc = lib.img_decode_jpeg(
+                path.encode(),
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                out.size, p_hw)
+            if rc == 0:
+                return out
     from PIL import Image
 
     with Image.open(path) as im:
@@ -36,7 +63,23 @@ def decode_rgb(path: str) -> np.ndarray:
 
 def decode_rgb_bytes(data: bytes) -> np.ndarray:
     """Decode in-memory image bytes to (H, W, 3) uint8 RGB (the serving
-    path's counterpart of `decode_rgb`)."""
+    path's counterpart of `decode_rgb`; native for JPEG payloads)."""
+    lib = get_imageio_lib()
+    if (lib is not None and lib.has_jpeg
+            and data[:2] == b"\xff\xd8"):  # JPEG magic
+        buf = np.frombuffer(data, np.uint8)
+        p_buf = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+        hw = np.zeros(2, np.int64)
+        p_hw = hw.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+        if lib.img_jpeg_dims_mem(p_buf, len(data), p_hw) == 0 \
+                and hw.min() > 0:
+            out = np.empty((int(hw[0]), int(hw[1]), 3), np.uint8)
+            rc = lib.img_decode_jpeg_mem(
+                p_buf, len(data),
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                out.size, p_hw)
+            if rc == 0:
+                return out
     from PIL import Image
 
     with Image.open(io.BytesIO(data)) as im:
@@ -44,7 +87,8 @@ def decode_rgb_bytes(data: bytes) -> np.ndarray:
 
 
 def _ensure_rgb3(image: np.ndarray) -> np.ndarray:
-    """Grayscale (H, W) / (H, W, 1) -> replicated RGB; RGBA -> RGB."""
+    """Grayscale (H, W) / (H, W, 1) -> replicated RGB; RGBA -> RGB.
+    The native resampler reads exactly H*W*3 bytes."""
     if image.ndim == 2:
         return np.repeat(image[:, :, None], 3, axis=2)
     if image.ndim != 3:
@@ -60,19 +104,63 @@ def _ensure_rgb3(image: np.ndarray) -> np.ndarray:
 
 def letterbox_rgb(image: np.ndarray, size: int
                   ) -> tuple[np.ndarray, LetterboxWindow]:
-    """(H, W[, C]) uint8 image -> (size, size, 3) float32 canvas + window."""
-    return letterbox_numpy(_ensure_rgb3(np.asarray(image)), size)
+    """(H, W[, C]) uint8 image -> (size, size, 3) float32 canvas + window,
+    native resample when available (PIL fallback otherwise)."""
+    image = _ensure_rgb3(np.asarray(image))
+    lib = get_imageio_lib()
+    if lib is None:
+        return letterbox_numpy(image, size)
+    img = np.ascontiguousarray(image, np.uint8)
+    canvas = np.empty((size, size, 3), np.float32)
+    meta = np.zeros(7, np.float64)
+    rc = lib.img_letterbox_rgb8(
+        img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        img.shape[0], img.shape[1], size,
+        canvas.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        meta.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    if rc != 0:
+        return letterbox_numpy(image, size)
+    return canvas, _window_from_meta(meta)
 
 
 def load_letterboxed_bytes(data: bytes, size: int
                            ) -> tuple[np.ndarray, LetterboxWindow]:
-    """In-memory image bytes -> letterboxed float32 canvas + window."""
+    """In-memory image bytes -> letterboxed float32 canvas + window (JPEG
+    payloads decode and resample in one native call)."""
+    lib = get_imageio_lib()
+    if (lib is not None and lib.has_jpeg
+            and data[:2] == b"\xff\xd8"):
+        buf = np.frombuffer(data, np.uint8)
+        canvas = np.empty((size, size, 3), np.float32)
+        meta = np.zeros(7, np.float64)
+        rc = lib.img_decode_letterbox_jpeg_mem(
+            buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(data),
+            size, canvas.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            meta.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+        if rc == 0:
+            return canvas, _window_from_meta(meta)
     return letterbox_rgb(decode_rgb_bytes(data), size)
 
 
 def load_letterboxed(path: str, size: int
                      ) -> tuple[np.ndarray, LetterboxWindow]:
-    """Image file -> (size, size, 3) float32 canvas + letterbox window."""
+    """Image file -> (size, size, 3) float32 canvas + letterbox window.
+
+    JPEGs take the fused native path (decode and resample never cross back
+    into Python); other formats decode via PIL and resample natively.
+    """
+    lib = get_imageio_lib()
+    if (lib is not None and lib.has_jpeg
+            and path.lower().endswith(_JPEG_EXTS)):
+        canvas = np.empty((size, size, 3), np.float32)
+        meta = np.zeros(7, np.float64)
+        rc = lib.img_decode_letterbox_jpeg(
+            path.encode(), size,
+            canvas.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            meta.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+        if rc == 0:
+            return canvas, _window_from_meta(meta)
+        # fall through: odd container with a .jpg name, etc.
     return letterbox_rgb(decode_rgb(path), size)
 
 
@@ -80,8 +168,9 @@ class PrefetchLoader:
     """Ordered, bounded, threaded letterbox loader.
 
     Iterating yields `(key, canvas, window)` in submission order while up to
-    `depth` decodes run ahead on `workers` threads (PIL releases the
-    interpreter lock while it decodes and resamples).
+    `depth` decodes run ahead on `workers` threads (the native library
+    and PIL both release the interpreter lock while they decode and
+    resample).
     """
 
     def __init__(self, items: Iterable[tuple[object, str]], size: int,

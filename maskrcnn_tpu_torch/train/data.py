@@ -1,5 +1,6 @@
 """COCO training data: letterboxed images and padded GT batches, port of
-`maskrcnn_tpu/train/data.py` on the port's PIL image path.
+`maskrcnn_tpu/train/data.py` (images through `pipeline/loader.py`: native
+decode and resample, PIL the fallback).
 
 Each example is letterboxed to the square network input, its GT boxes
 moved into normalized canvas coordinates, its instance segmentations
@@ -165,7 +166,8 @@ class COCOTrainLoader:
 
 class PrefetchBatcher:
     """One-ahead prefetch: batch t+1 is loaded on a worker thread while the
-    device runs step t (PIL decode and resample release the GIL)."""
+    device runs step t (native and PIL decode and resample release the
+    GIL)."""
 
     def __init__(self, loader: COCOTrainLoader):
         self._loader = loader

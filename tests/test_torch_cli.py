@@ -19,6 +19,9 @@ import maskrcnn_tpu.evalkit.cocoeval as jax_ce
 import maskrcnn_tpu.evalkit.mask_rle as jax_rle
 import maskrcnn_tpu.native
 import maskrcnn_tpu.pipeline.loader as jax_loader
+import maskrcnn_tpu_torch.evalkit.cocoeval as pt_ce
+import maskrcnn_tpu_torch.native
+import maskrcnn_tpu_torch.pipeline.loader as pt_loader
 from maskrcnn_tpu.core import anchors as jax_anchors
 from maskrcnn_tpu.core.config import MaskRCNNConfig as JaxConfig
 from maskrcnn_tpu.io import weights as jax_weights
@@ -319,6 +322,11 @@ def test_evaluate_matches_the_jax_cli(ws, capsys, monkeypatch):
     monkeypatch.setattr(maskrcnn_tpu.native, "get_imageio_lib", lambda: None)
     monkeypatch.setattr(jax_rle, "get_rle_lib", lambda: None)
     monkeypatch.setattr(jax_ce, "get_evalmatch_lib", lambda: None)
+    monkeypatch.setattr(pt_loader, "get_imageio_lib", lambda: None)
+    monkeypatch.setattr(maskrcnn_tpu_torch.native, "get_imageio_lib",
+                        lambda: None)
+    monkeypatch.setattr(mask_rle, "get_rle_lib", lambda: None)
+    monkeypatch.setattr(pt_ce, "get_evalmatch_lib", lambda: None)
     args = ["evaluate", "t", "coco", "--limit", "4", "--batch", "2",
             "--weights", ".maskrcnn/models/t/weights.h5"]
     assert jax_main(args + ["--results_dir", "jx"]) == 0

@@ -15,6 +15,7 @@ import pytest
 import maskrcnn_tpu.evalkit.cocoeval as jax_ce
 import maskrcnn_tpu.evalkit.mask_rle as jax_rle
 import maskrcnn_tpu.native
+import maskrcnn_tpu_torch.native
 from maskrcnn_tpu.core.config import tiny_test_config as jax_tiny
 from maskrcnn_tpu.evalkit import results as jax_results
 from maskrcnn_tpu.evalkit.coco import COCODataset as JaxDataset
@@ -30,10 +31,15 @@ from maskrcnn_tpu_torch.pipeline.preprocess import compute_window
 
 @pytest.fixture(autouse=True)
 def _jax_numpy_paths(monkeypatch):
-    """The JAX package's numpy and PIL paths: its C++ library off."""
+    """Both packages' numpy and PIL paths: their C++ libraries off (the
+    native paths against each other are in test_torch_native.py)."""
     monkeypatch.setattr(jax_rle, "get_rle_lib", lambda: None)
     monkeypatch.setattr(jax_ce, "get_evalmatch_lib", lambda: None)
     monkeypatch.setattr(maskrcnn_tpu.native, "get_imageio_lib", lambda: None)
+    monkeypatch.setattr(pt_rle, "get_rle_lib", lambda: None)
+    monkeypatch.setattr(pt_ce, "get_evalmatch_lib", lambda: None)
+    monkeypatch.setattr(maskrcnn_tpu_torch.native, "get_imageio_lib",
+                        lambda: None)
 
 
 def _masks(seed, h=37, w=53):

@@ -16,6 +16,7 @@ import torch
 
 import maskrcnn_tpu.native
 import maskrcnn_tpu.pipeline.loader as jax_loader
+import maskrcnn_tpu_torch.native
 from maskrcnn_tpu.core.config import tiny_test_config as jax_tiny
 from maskrcnn_tpu.pipeline import detector as jax_det
 from maskrcnn_tpu_torch.core.config import tiny_test_config as pt_tiny
@@ -30,8 +31,13 @@ SHAPES = [(61, 90), (61, 90, 1), (90, 61, 3), (45, 130, 4)]
 
 @pytest.fixture(autouse=True)
 def _jax_pil_path(monkeypatch):
+    """PIL against PIL: both packages' C++ libraries off (the native paths
+    against each other are in test_torch_native.py)."""
     monkeypatch.setattr(jax_loader, "get_imageio_lib", lambda: None)
     monkeypatch.setattr(maskrcnn_tpu.native, "get_imageio_lib", lambda: None)
+    monkeypatch.setattr(pt_loader, "get_imageio_lib", lambda: None)
+    monkeypatch.setattr(maskrcnn_tpu_torch.native, "get_imageio_lib",
+                        lambda: None)
 
 
 def _image(shape, seed=0):

@@ -142,15 +142,17 @@ def test_detector_detect_images_on_cpu(tmp_path):
 
 
 def test_letterbox_and_paste_match_jax(monkeypatch):
-    """The port pastes with PIL's bilinear resample, the JAX package's
-    reference path; with its native resampler switched off the JAX package
-    must give the same pixels."""
+    """PIL's bilinear resample, both packages' fallback paste: with their
+    native resamplers switched off they give the same pixels."""
     import maskrcnn_tpu.native
+    import maskrcnn_tpu_torch.native
     from maskrcnn_tpu.pipeline import detector as jax_det
     from maskrcnn_tpu.pipeline import preprocess as jax_pre
     from maskrcnn_tpu_torch.pipeline import detector as pt_det
     from maskrcnn_tpu_torch.pipeline import preprocess as pt_pre
     monkeypatch.setattr(maskrcnn_tpu.native, "get_imageio_lib", lambda: None)
+    monkeypatch.setattr(maskrcnn_tpu_torch.native, "get_imageio_lib",
+                        lambda: None)
     rng = np.random.default_rng(4)
     img = rng.integers(0, 256, (77, 130, 3), dtype=np.uint8)
     got_c, got_w = pt_pre.letterbox_numpy(img, 128)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import maskrcnn_tpu.evalkit.mask_rle as jax_rle
+import maskrcnn_tpu_torch.evalkit.mask_rle as pt_rle
 from maskrcnn_tpu.pipeline import detector as jax_det
 from maskrcnn_tpu.pipeline import serve as jax_serve
 from maskrcnn_tpu_torch.core.config import tiny_test_config as pt_tiny
@@ -202,6 +203,7 @@ def test_worker_reports_errors_to_every_waiter_and_keeps_serving():
 
 def test_detections_to_json_matches_jax(monkeypatch):
     monkeypatch.setattr(jax_rle, "get_rle_lib", lambda: None)
+    monkeypatch.setattr(pt_rle, "get_rle_lib", lambda: None)
     mask = np.zeros((50, 70), bool)
     mask[10:30, 5:40] = True
     rle = {"size": [50, 70], "counts": "PQ13"}

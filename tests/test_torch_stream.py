@@ -18,6 +18,7 @@ from maskrcnn_tpu.pipeline import stream as jax_stream
 from maskrcnn_tpu_torch.core.config import tiny_test_config as pt_tiny
 from maskrcnn_tpu_torch.io import weights as pt_weights
 from maskrcnn_tpu_torch.models import mask_rcnn as pt_model
+from maskrcnn_tpu_torch.pipeline import loader as pt_loader
 from maskrcnn_tpu_torch.pipeline import paste as pt_paste
 from maskrcnn_tpu_torch.pipeline import preprocess as pt_pre
 from maskrcnn_tpu_torch.pipeline import stream as pt_stream
@@ -145,7 +146,7 @@ def test_uint8_wire_equals_quantized_canvases(fused_detector):
     imgs = [rng.integers(0, 256, (90, 140, 3), dtype=np.uint8),
             rng.integers(0, 256, (130, 100, 3), dtype=np.uint8)]
     got = det.detect_images(imgs, uint8_wire=True)
-    canvases, windows = zip(*[pt_pre.letterbox_numpy(im, 128)
+    canvases, windows = zip(*[pt_loader.letterbox_rgb(im, 128)
                               for im in imgs])
     quantized = [pt_pre.quantize_canvas_u8(c).astype(np.float32)
                  for c in canvases]

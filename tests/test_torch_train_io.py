@@ -17,6 +17,9 @@ from PIL import Image
 import maskrcnn_tpu.evalkit.mask_rle as jax_rle
 import maskrcnn_tpu.native
 import maskrcnn_tpu.pipeline.loader as jax_loader
+import maskrcnn_tpu_torch.evalkit.mask_rle as pt_rle
+import maskrcnn_tpu_torch.native
+import maskrcnn_tpu_torch.pipeline.loader as pt_loader
 from maskrcnn_tpu.core.config import tiny_test_config as jax_tiny
 from maskrcnn_tpu.train import data as jax_data
 from maskrcnn_tpu_torch.cli.main import main
@@ -36,9 +39,14 @@ CFG = pt_tiny().replace(compute_dtype="float32")
 
 @pytest.fixture(autouse=True)
 def no_native(monkeypatch):
+    """Both packages' PIL and numpy paths: their C++ libraries off."""
     monkeypatch.setattr(jax_loader, "get_imageio_lib", lambda: None)
     monkeypatch.setattr(maskrcnn_tpu.native, "get_imageio_lib", lambda: None)
     monkeypatch.setattr(jax_rle, "get_rle_lib", lambda: None)
+    monkeypatch.setattr(pt_loader, "get_imageio_lib", lambda: None)
+    monkeypatch.setattr(maskrcnn_tpu_torch.native, "get_imageio_lib",
+                        lambda: None)
+    monkeypatch.setattr(pt_rle, "get_rle_lib", lambda: None)
 
 
 @pytest.fixture
