@@ -91,6 +91,17 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            with both fused heads (K5 and K6 once per forward), `train
            --synthetic --steps 3 --state --output` (a calibrated .npz) and
            then `--resume --steps 5` (to step 5; K1, K2)
+  proof    `maskrcnn_tpu_torch/tools/flagship_proof.py`'s loop at R101-FPN
+           @ 1024^2, 81 classes, at small depth: its synthetic COCO set
+           (4 train, 2 val images from the seed), `cli train` 20 steps at
+           --batch (checkpoint every 10) and `--resume --steps 30` (from
+           step 20), each calibrating BN (K1, K2; every logged loss
+           finite); `cli evaluate` on the 2 val images in production
+           numerics (K1-K4) and exact numerics (float32, TF32 off: its
+           launches printed), scored by the tool's `score` and
+           `cross_mode_deltas` (AP printed, not judged); `evaluate
+           --compare-tf` (exit 2 naming TensorFlow where TF is absent,
+           as on the card's machine; else on one image)
   mnv2     MobileNetV2-FPN @ 1024^2, 81 classes, bf16, random weights
            from the seed with live BN: `detect_images` over the e2e images
            at the default and the zero score threshold (a main path, K1 and
@@ -1906,6 +1917,167 @@ def cli(dev, seed, batch, base):
 
 
 # --------------------------------------------------------------------------
+# The accuracy loop: train from scratch, resume, evaluate in both numerics
+# --------------------------------------------------------------------------
+
+PROOF_TRAIN_KERNELS = ("nms", "roi_align")
+
+
+def proof(dev, seed, batch, base):
+    """`tools/flagship_proof.py`'s loop at full width and small depth: its
+    synthetic COCO set (4 train and 2 val images at `base`'s size, drawn
+    from the seed), `cli train` for 20 steps at --batch with a checkpoint
+    every 10, then `--resume --steps 30` (must start at step 20), both
+    calibrating the BN statistics; `cli evaluate` on the 2 val images in
+    production and exact numerics (TF32 off), scored by the tool's `score`
+    and `cross_mode_deltas`; `evaluate --compare-tf` (exit 2 naming
+    TensorFlow where TF is absent, else on one image). AP is printed, not
+    judged: 30 steps are too few."""
+    import contextlib
+    import io
+    import math
+    import os
+    import shutil
+    import tempfile
+    from maskrcnn_tpu_torch.cli.main import main as cli_main
+    from maskrcnn_tpu_torch.tools import flagship_proof as fp
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_proof_")
+    try:
+        t0 = time.perf_counter()
+        ann_dir = fp.make_dataset(root, 4, 2, base.image_height, seed)
+        data_s = time.perf_counter() - t0
+        cfg_prod = os.path.join(root, "config_production.json")
+        cfg_exact = os.path.join(root, "config_exact.json")
+        base.to_json(cfg_prod)
+        fp.exact_config(base).to_json(cfg_exact)
+        on = [] if dev.type == "cuda" else ["--device", str(dev)]
+        ckpt = os.path.join(root, "checkpoint.npz")
+        ckpt_dir = os.path.join(root, "ckpts")
+        metrics = os.path.join(root, "metrics.jsonl")
+
+        def run(argv, exact=False):
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc, launches, peak = fp.run_counted(cli_main, argv, dev,
+                                                    exact=exact)
+            return {"rc": rc, "seconds": time.perf_counter() - t0,
+                    "launches": launches, "peak_gb": peak,
+                    "out": out.getvalue(), "err": err.getvalue()}
+
+        train_argv = [
+            "train", "proof", "--config", cfg_prod,
+            "--annotations", os.path.join(ann_dir, "instances_train2017.json"),
+            "--images_dir", os.path.join(ann_dir, "train2017"),
+            "--batch", str(batch), "--seed", str(seed), "--log-every", "1",
+            "--output", ckpt, "--cache-images", "8",
+            "--checkpoint-dir", ckpt_dir, "--checkpoint-every", "10",
+            "--calibrate-batches", "2", "--metrics-log", metrics] + on
+        tr = run(train_argv + ["--steps", "20"])
+        tr_resume = run(train_argv + ["--steps", "30", "--resume"])
+        with open(metrics) as f:
+            log = [json.loads(line) for line in f]
+
+        evals = {}
+        for mode, cfg in (("production", cfg_prod), ("exact_fp32",
+                                                     cfg_exact)):
+            res_dir = os.path.join(root, f"results_{mode}")
+            argv = ["evaluate", "proof", "coco", "--limit", "2",
+                    "--batch", str(batch), "--config", cfg,
+                    "--weights", ckpt, "--annotations_dir", ann_dir,
+                    "--images_dir", os.path.join(ann_dir, "val2017"),
+                    "--results_dir", res_dir] + on
+            ev = run(argv, exact=mode == "exact_fp32")
+            if ev["rc"] == 0:
+                with open(os.path.join(res_dir, "results.json")) as f:
+                    ev["rows"] = len(json.load(f))
+                ev["stats"] = fp.score(
+                    root, os.path.join(res_dir, "results.json"), 2)
+            evals[mode] = ev
+        deltas = (fp.cross_mode_deltas(root, {
+            m: os.path.join(root, f"results_{m}", "results.json")
+            for m in evals}, 2) if all(e["rc"] == 0 for e in evals.values())
+            else None)
+
+        try:
+            import tensorflow  # noqa: F401
+            has_tf = True
+        except ImportError:
+            has_tf = False
+        tf_run = run(["evaluate", "proof", "coco", "--limit", "1",
+                      "--config", cfg_exact, "--weights", ckpt,
+                      "--annotations_dir", ann_dir,
+                      "--images_dir", os.path.join(ann_dir, "val2017"),
+                      "--results_dir", os.path.join(root, "results_tf"),
+                      "--compare-tf"] + on)
+        tf_written = os.path.exists(os.path.join(root, "results_tf",
+                                                 "results_tf.json"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def brief(r):
+        return {k: r[k] for k in ("rc", "seconds", "launches", "peak_gb",
+                                  "rows", "stats") if k in r}
+
+    emit({"phase": "proof", "config": describe(base)
+          + f", batch {batch}, 4 train / 2 val synthetic images",
+          "dataset_seconds": data_s,
+          "train": dict(brief(tr), stdout=tr["out"].splitlines()[-4:]),
+          "train_resume": dict(brief(tr_resume),
+                               stdout=tr_resume["out"].splitlines()[:2]
+                               + tr_resume["out"].splitlines()[-3:]),
+          "loss_first_last": [log[0]["loss"], log[-1]["loss"]] if log
+          else None,
+          "production": brief(evals["production"]),
+          "exact_fp32": brief(evals["exact_fp32"]),
+          "exact_fp32_launches": evals["exact_fp32"]["launches"],
+          "cross_mode_deltas": deltas,
+          "compare_tf": {"tensorflow": has_tf, "rc": tf_run["rc"],
+                         "results_tf_written": tf_written,
+                         "stderr": tf_run["err"].strip().splitlines()[-1:]}})
+    problems = []
+    for what, r in (("train", tr), ("train --resume", tr_resume)):
+        if r["rc"] != 0:
+            problems.append(f"{what} exited {r['rc']}: {r['err'][-800:]}")
+        missing = [k for k in PROOF_TRAIN_KERNELS if not r["launches"][k]]
+        if missing:
+            problems.append(f"{what} never launched {missing}")
+        if "BN statistics calibrated" not in r["out"]:
+            problems.append(f"{what} did not calibrate")
+    if f"resumed from {ckpt_dir} at step 20" not in tr_resume["out"]:
+        problems.append(f"resume did not start at step 20: "
+                        f"{tr_resume['out'][:500]}")
+    if [r["step"] for r in log] != list(range(30)):
+        problems.append(f"logged steps {[r['step'] for r in log]}")
+    bad = [(r["step"], k) for r in log for k, v in r.items()
+           if k != "step" and not math.isfinite(v)]
+    if bad:
+        problems.append(f"non-finite losses {bad[:5]}")
+    for mode, ev in evals.items():
+        if ev["rc"] != 0:
+            problems.append(f"evaluate {mode} exited {ev['rc']}: "
+                            f"{ev['err'][-800:]}")
+    missing = [k for k in SERVE_KERNELS
+               if not evals["production"]["launches"][k]]
+    if missing:
+        problems.append(f"production evaluate never launched {missing}")
+    if has_tf:
+        if tf_run["rc"] != 0 or not tf_written:
+            problems.append(f"--compare-tf exited {tf_run['rc']}")
+    elif tf_run["rc"] != 2 or "TensorFlow" not in tf_run["err"]:
+        problems.append(f"--compare-tf without TF exited {tf_run['rc']}: "
+                        f"{tf_run['err'][-300:]}")
+    if problems:
+        raise AssertionError(f"proof: {problems}")
+    return {"proof_train": tr["launches"],
+            "proof_train_resume": tr_resume["launches"],
+            "proof_evaluate": evals["production"]["launches"],
+            "proof_evaluate_exact": evals["exact_fp32"]["launches"]}
+
+
+# --------------------------------------------------------------------------
 # MobileNetV2-FPN, export, data parallel
 # --------------------------------------------------------------------------
 
@@ -2570,6 +2742,8 @@ def main() -> int:
     by_path["serve"] = serve(dev, args.seed, args.batch, full)
     torch.cuda.empty_cache()
     by_path.update(cli(dev, args.seed, args.batch, full))
+    torch.cuda.empty_cache()
+    by_path.update(proof(dev, args.seed, args.batch, full))
     torch.cuda.empty_cache()
     by_path.update(bench(args.batch))
 

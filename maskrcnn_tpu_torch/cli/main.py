@@ -13,8 +13,9 @@ Every subcommand that runs the model runs it on the card; `--device cpu`
 asks for the plain PyTorch path on the CPU instead. `convert
 --export-savedmodel DIR` writes a `torch.export` program (`io/export.py`)
 where the JAX package writes a TF SavedModel; `evaluate --dp N` splits each
-batch over N devices of `--device`'s kind. Not ported, exiting non-zero:
-`evaluate --compare-tf` (the JAX package's TF oracle).
+batch over N devices of `--device`'s kind. `evaluate --compare-tf` runs the
+same weights through the TensorFlow oracle (`evalkit/tf_forward.py`) on the
+host CPU and exits 2 where TensorFlow does not import (the card's machine).
 
 Artifacts live under `$MASKRCNN_HOME/models/<name>/` (default
 `.maskrcnn/`): inputs `config.json` + `weights.h5`, outputs in `products/`
@@ -28,17 +29,6 @@ import json
 import os
 import sys
 import time
-
-_NOT_PORTED = {
-    "compare_tf": "evaluate --compare-tf runs the JAX package's TensorFlow "
-                  "oracle, which is not ported (ROADMAP.md Queue 1, M7)",
-}
-
-
-def _not_ported(what: str) -> int:
-    print(f"error: {_NOT_PORTED[what]}", file=sys.stderr)
-    return 2
-
 
 def _workspace(name: str) -> str:
     return os.path.join(os.environ.get("MASKRCNN_HOME", ".maskrcnn"),
@@ -174,9 +164,23 @@ def cmd_convert(args) -> int:
 # evaluate
 # ---------------------------------------------------------------------------
 
+def _tensorflow_imports() -> bool:
+    """Whether `--compare-tf` can run; the reason printed where not."""
+    try:
+        import tensorflow  # noqa: F401
+    except ImportError as e:
+        print(f"error: evaluate --compare-tf runs the TensorFlow oracle "
+              f"(evalkit/tf_forward.py), but TensorFlow does not import "
+              f"here ({e}); install TensorFlow or drop --compare-tf",
+              file=sys.stderr)
+        return False
+    return True
+
+
 def cmd_evaluate(args) -> int:
-    if args.compare_tf:
-        return _not_ported("compare_tf")
+    # the oracle is checked first: --compare-tf never runs without it
+    if args.compare_tf and not _tensorflow_imports():
+        return 2
     import numpy as np
 
     from maskrcnn_tpu_torch.evalkit.coco import COCODataset
@@ -231,6 +235,8 @@ def cmd_evaluate(args) -> int:
         pending.clear()
         pending_ids.clear()
 
+    eval_paths: dict[int, str] = {}   # read again by --compare-tf
+
     def iter_paths():
         for im in dataset.iter_images(limit=args.limit, sort_by_id=True):
             path = os.path.join(images_dir, im.file_name)
@@ -238,6 +244,7 @@ def cmd_evaluate(args) -> int:
                 print(f"# skipping {im.id}: {path} not found",
                       file=sys.stderr)
                 continue
+            eval_paths[im.id] = path
             yield im.id, path
 
     loader = iter(PrefetchLoader(iter_paths(), config.image_height,
@@ -280,7 +287,48 @@ def cmd_evaluate(args) -> int:
             print(f"== {iou_type} (compare) ==")
             COCOEvaluator(dataset, other, iou_type,
                           img_ids=eval_ids).summarize()
+
+    if args.compare_tf:
+        _compare_tf(args, detector, config, dataset, eval_ids, eval_paths)
     return 0
+
+
+def _compare_tf(args, detector, config, dataset, eval_ids, eval_paths):
+    """The reference's `-c` mode (EvaluateCommand.swift:124-127): the same
+    weights through the independent TensorFlow implementation, in float32
+    on the host CPU, over the same letterboxed images; its results go to
+    `results_tf.json` beside `results.json`, and both AP tables print."""
+    import numpy as np
+
+    from maskrcnn_tpu_torch.core.anchors import generate_anchors
+    from maskrcnn_tpu_torch.evalkit.cocoeval import COCOEvaluator
+    from maskrcnn_tpu_torch.evalkit.results import (
+        detections_to_coco_results, save_coco_results)
+    from maskrcnn_tpu_torch.evalkit.tf_forward import tf_forward
+    from maskrcnn_tpu_torch.io.weights import params_to_numpy
+    from maskrcnn_tpu_torch.pipeline.loader import load_letterboxed
+
+    print("== TensorFlow oracle (same weights, independent "
+          "implementation) ==", file=sys.stderr)
+    params_np = params_to_numpy(detector.params)
+    anchors_np = generate_anchors(config)
+    tf_rows = []
+    for img_id in eval_ids:
+        canvas, win = load_letterboxed(eval_paths[img_id], config.image_height)
+        res = tf_forward(params_np, canvas[None], anchors_np, config)[0]
+        d = len(res["scores"])
+        det_rows = np.concatenate(
+            [res["boxes"], res["class_ids"][:, None].astype(np.float32),
+             res["scores"][:, None]], axis=1) if d else np.zeros((0, 6))
+        dets = detector.unmold(det_rows, res["masks"], np.ones((d,), bool),
+                               win, paste_masks="rle")
+        tf_rows.extend(detections_to_coco_results(img_id, dets, dataset))
+    save_coco_results(tf_rows,
+                      os.path.join(args.results_dir, "results_tf.json"))
+    for iou_type in ("bbox", "segm"):
+        print(f"== {iou_type} (TF oracle) ==")
+        COCOEvaluator(dataset, tf_rows, iou_type,
+                      img_ids=eval_ids).summarize()
 
 
 # ---------------------------------------------------------------------------
@@ -676,7 +724,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "level): 4x fewer host-to-device bytes")
     e.add_argument("--exact", action="store_true", help=_EXACT_HELP)
     e.add_argument("--compare-tf", action="store_true",
-                   help="the JAX package's TF oracle; not ported")
+                   help="also run the same weights through the TensorFlow "
+                        "oracle (float32, host CPU) and score it: "
+                        "results_tf.json; exits 2 without TensorFlow")
     _add_device(e)
     e.set_defaults(fn=cmd_evaluate)
 

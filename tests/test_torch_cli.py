@@ -1,12 +1,13 @@
 """The port's CLI over a synthetic on-disk COCO workspace, on the CPU
 (`--device cpu`, tiny config): convert (with `anchors.bin` bytes equal to
-the JAX package's, and `--export-savedmodel`), evaluate (with `--dp`),
-demo, stream, download, and the option not ported; the `.h5` weight
+the JAX package's, and `--export-savedmodel`), evaluate (with `--dp` and
+`--compare-tf`, the TF oracle), demo, stream, download; the `.h5` weight
 bridge both ways against the JAX package's; and the bench script's parser
 and its refusal to run without a card."""
 
 import json
 import os
+import re
 import sys
 
 import h5py
@@ -181,13 +182,32 @@ def test_entry_points_need_a_card_unless_asked(ws, monkeypatch):
         main(["demo", "t", "data/coco/val2017/000000000001.jpg"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["evaluate", "t", "coco", "--compare-tf"], "M7"),
-])
-def test_options_not_ported_exit_nonzero(ws, capsys, argv, item):
-    assert main(argv) != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and f"ROADMAP.md Queue 1, {item}" in err
+def test_evaluate_compare_tf_scores_the_oracle(ws, capsys):
+    """`--compare-tf` runs the same weights through the TF oracle over the
+    evaluated images: `results_tf.json` beside `results.json`, over the
+    same image ids, and a second pair of AP tables headed (TF oracle)."""
+    pytest.importorskip("tensorflow")
+    assert main(["evaluate", "t", "coco", "--limit", "2", "--device", "cpu",
+                 "--results_dir", "tfres", "--compare-tf"]) == 0
+    out = capsys.readouterr().out
+    assert "== bbox (TF oracle) ==" in out and "== segm (TF oracle) ==" in out
+    assert len(re.findall(r"\[segm\] AP @\[0.50:0.95\]", out)) == 2
+    rows = json.load(open(ws / "tfres" / "results.json"))
+    tf_rows = json.load(open(ws / "tfres" / "results_tf.json"))
+    assert {r["image_id"] for r in tf_rows} == {r["image_id"] for r in rows} \
+        == {1, 2}
+    assert all(r["segmentation"]["size"] == [H, W] for r in tf_rows)
+
+
+def test_evaluate_compare_tf_without_tensorflow_exits_2(ws, capsys,
+                                                        monkeypatch):
+    """No silent fallback: where TensorFlow does not import, the command
+    exits 2 naming it, before it evaluates anything."""
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    assert main(["evaluate", "t", "coco", "--device", "cpu",
+                 "--results_dir", "notf", "--compare-tf"]) == 2
+    assert "TensorFlow" in capsys.readouterr().err
+    assert not os.path.exists(ws / "notf")
 
 
 def test_evaluate_dp_writes_the_same_results(ws, capsys):

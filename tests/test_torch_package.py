@@ -48,19 +48,22 @@ def _port_modules():
 
 def test_import_loads_neither_jax_nor_the_jax_package():
     """Every module of the port, the CLI, evalkit and training included;
-    `h5py` too stays unloaded (the `.h5` functions import it, and the
-    card's machine may lack it)."""
+    `h5py` and `tensorflow` too stay unloaded (the `.h5` functions and the
+    TF oracle import them, and the card's machine lacks them), and the
+    repo's `tools/` (the port keeps its own copies)."""
     assert {f"maskrcnn_tpu_torch.train.{m}" for m in (
         "targets", "losses", "step", "calibrate", "checkpoint",
         "data")} <= set(_port_modules())
     assert {"maskrcnn_tpu_torch.models.mobilenet",
             "maskrcnn_tpu_torch.io.export",
-            "maskrcnn_tpu_torch.parallel.mesh"} <= set(_port_modules())
+            "maskrcnn_tpu_torch.parallel.mesh",
+            "maskrcnn_tpu_torch.evalkit.tf_forward",
+            "maskrcnn_tpu_torch.tools.flagship_proof"} <= set(_port_modules())
     code = ("import sys\n"
             f"for m in {_port_modules()!r}:\n"
             "    __import__(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'maskrcnn_tpu', 'h5py'))\n"
+            "('jax', 'maskrcnn_tpu', 'h5py', 'tensorflow', 'tools'))\n"
             "print(len(bad), bad[:5])\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -69,7 +72,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
 
 
 def test_sources_name_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|maskrcnn_tpu)\b", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|maskrcnn_tpu|tools)\b", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, names in _walk_package():
         files += [os.path.join(dirpath, n) for n in names
