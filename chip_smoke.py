@@ -21,7 +21,10 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            wrappers' host time); K1, K3-K6 with the device kernels one call
            launches and their device times (torch.profiler), K5 and K6
            with their pool pass's time (`pool_pass_ms`); K3 a second time
-           at 804 x 1060, whose pooled grid its tile does not divide
+           at 804 x 1060, whose pooled grid its tile does not divide;
+           then K1-K4 again at batch 8, the serve_probe path's shapes
+           (every forward there padded to its max batch 8), held to the
+           same tolerances (in the `kernels` line as `serve_probe_batch`)
   native   the host native library (`maskrcnn_tpu_torch/native`, g++ at
            first use): which of librle, libimageio (with or without its
            libjpeg entry points) and libevalmatch loaded, the build
@@ -83,6 +86,17 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            traffic in turns on the PIL/numpy host fallback and on the
            native host path (fallback, native, native, fallback):
            requests/s and p50 of each turn
+  serve_probe  `maskrcnn_tpu_torch/tools/serve_probe.py` (its `main`) on
+           the default config at score threshold 0 (a config JSON), random
+           weights from the seed, uint8 wire, max batch 8: a warm-up round
+           of 16 requests, then K = 1 and 4 concurrent clients at 16
+           requests each (a main path: K1-K4, K3 once and K1 twice per
+           forward); its sweep (requests/s, p50/p95/p99, batch histogram,
+           each summing to its requests); fails if a request errs
+  evaluate_bench  host only: `tools/bench_cocoeval.py` at 500 images in
+           bbox and segm, native matcher and `--numpy` (equal AP and
+           AR100), and `tools/bench_results_leg.py` at 500 images x 20
+           detections, region and full-canvas paste (the same rows)
   cli      `maskrcnn_tpu_torch.cli.main` in-process over a temporary COCO
            workspace (4 JPEGs with polygon annotations, random weights
            from the seed as .npz): `evaluate --uint8` (both 12-number
@@ -136,8 +150,10 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            phase has the times); its JSON lines
 
 then a `kernels` line (each kernel's launches on the e2e or stream path,
-on every path in `launches_by_path`, per training step of each training
-configuration in `train_launches_per_step`, and for K2-K4 the training
+on every path in `launches_by_path`, for K1-K4 their numbers at the
+serve_probe path's batch in `serve_probe_batch`, per training step of
+each training configuration in `train_launches_per_step`, and for K2-K4
+the training
 Function's forward and backward times and its forward's error), the
 nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
@@ -569,22 +585,36 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
 # K3 stem, K4 bottleneck chains
 # --------------------------------------------------------------------------
 
-# float32 sums in another order before one bf16 rounding: at most one bf16
-# ulp of each value (2^-8 relative), plus slack at zero
-STEM_TOL = (2.0 ** -8, 1e-3)
+# float32 sums in another order before one bf16 rounding: a value may land
+# on the next bf16 number, one ulp away (8 significant bits: 2^-8 to 2^-7
+# of the value, so 2^-8 relative is less than an ulp), plus slack at zero
+STEM_TOL = ("ulp", 1e-3)
 # bf16 intermediates rounded at the same points, float32 sums in another
 # order: an ulp that later blocks carry on
 CHAIN_TOL = (0.02, 0.01)
 
 
+def bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x|: 2^(e-8) for |x| in
+    [2^(e-1), 2^e)."""
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
 def over_tol(got, want, tol) -> tuple[float, int, str]:
-    """max |got - want| and the number of elements over
-    rel*|want| + abs*max|want|, with the tolerance as text."""
+    """max |got - want| and the number of elements over rel*|want| (for
+    rel "ulp": one bf16 ulp at the larger of |got|, |want|) +
+    abs*max|want|, with the tolerance as text."""
     rel, of_max = tol
-    err = (got.float() - want.float()).abs()
-    bad = int((err > rel * want.float().abs()
-               + of_max * want.float().abs().max()).sum())
-    return err.max().item(), bad, f"{rel}*|plain| + {of_max}*max|plain| each"
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if rel == "ulp":
+        allowed, text = bf16_ulp(torch.maximum(got.abs(), want.abs())), \
+            "1 bf16 ulp"
+    else:
+        allowed, text = rel * want.abs(), f"{rel}*|plain|"
+    bad = int((err > allowed + of_max * want.abs().max()).sum())
+    return err.max().item(), bad, f"{text} + {of_max}*max|plain| each"
 
 
 def check_stem(dev, rng, batch, params):
@@ -1725,6 +1755,118 @@ def serve(dev, seed, batch, base, rounds=2):
     return launches
 
 
+SERVE_PROBE_CLIENTS = (1, 4)
+SERVE_PROBE_MAX_BATCH = 8     # the detector pads every forward to this
+
+
+def serve_probe_phase(dev, seed, base, requests=16, warmup=16,
+                      max_batch=SERVE_PROBE_MAX_BATCH):
+    """`maskrcnn_tpu_torch/tools/serve_probe.py` on the card: `base` (the
+    default config) at score threshold 0 from a config JSON, random weights
+    from the seed, uint8 wire, max batch 8, K = 1 and 4 at `requests` each
+    after a warm-up round of `warmup` requests at K = 1."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from maskrcnn_tpu_torch.ops import cuda_lib
+    from maskrcnn_tpu_torch.tools import serve_probe
+    with tempfile.TemporaryDirectory() as d:
+        cfg, out = os.path.join(d, "config.json"), os.path.join(d, "out.json")
+        base.replace(detection_score_threshold=0.0).to_json(cfg)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_probe.main([
+                "--config", cfg, "--seed", str(seed), "--port", "0",
+                "--max-batch", str(max_batch), "--requests", str(requests),
+                "--warmup-requests", str(warmup), "--out", out,
+                "--clients", *map(str, SERVE_PROBE_CLIENTS)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(cuda_lib.launches)                     # main path
+        with open(out) as f:
+            report = json.load(f)
+    emit({"phase": "serve_probe", "config": describe(base)
+          + ", unfused heads, score threshold 0, uint8_wire",
+          "rc": rc, "seconds": seconds, "launches": launches,
+          "host_native": host_native(), "report": report})
+    if rc != 0:
+        raise AssertionError(f"serve_probe exited {rc}")
+    points = [report["warmup"]] + report["sweep"]
+    if [p["clients"] for p in report["sweep"]] != list(SERVE_PROBE_CLIENTS):
+        raise AssertionError(f"serve_probe swept {report['sweep']}")
+    batches = 0
+    for p, n in zip(points, [warmup] + [requests] * len(report["sweep"])):
+        hist = {int(k): c for k, c in p["batch_size_hist"].items()}
+        if p["requests"] != n or sum(k * c for k, c in hist.items()) != n:
+            raise AssertionError(f"serve_probe point {p}: its histogram "
+                                 f"does not hold its {n} requests")
+        batches += sum(hist.values())
+    forwards = batches + 1                     # + the tool's warm-up batch
+    if launches["stem"] != forwards or launches["nms"] != 2 * forwards:
+        raise AssertionError(f"{forwards} forwards launched K3 "
+                             f"{launches['stem']} and K1 {launches['nms']} "
+                             "times (expected once and twice per forward)")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"serve_probe path never launched {missing}")
+    return launches
+
+
+def evaluate_bench(images=500, dets=20):
+    """Host only: `tools/bench_cocoeval.py` at `images` images in bbox and
+    segm, native matcher and `--numpy` (equal AP and AR100 demanded), and
+    `tools/bench_results_leg.py` at `images` x `dets` in both modes (the
+    same RLE rows from both, checked at 50 images)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from maskrcnn_tpu_torch.tools import bench_cocoeval, bench_results_leg
+
+    def run(tool, argv, path):
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = tool.main(argv + ["--json", path])
+        if rc != 0:
+            raise AssertionError(f"{tool.__name__} {argv} exited {rc}")
+        with open(path) as f:
+            return json.load(f)
+
+    cocoeval, leg = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for iou in ("bbox", "segm"):
+            for flags in ([], ["--numpy"]):
+                key = f"{iou}_{'numpy' if flags else 'native'}"
+                cocoeval[key] = run(bench_cocoeval, [
+                    "--images", str(images), "--iou-type", iou] + flags,
+                    os.path.join(d, key + ".json"))
+        for flags in ([], ["--full-canvas"]):
+            key = "full_canvas" if flags else "region_rle"
+            leg[key] = run(bench_results_leg, [
+                "--images", str(images), "--dets", str(dets)] + flags,
+                os.path.join(d, key + ".json"))
+    ds, raw = bench_results_leg.synth(50, dets)
+    same_rows = (bench_results_leg.results_rows(ds, raw, False)[0]
+                 == bench_results_leg.results_rows(ds, raw, True)[0])
+    emit({"phase": "evaluate_bench", "host_native": host_native(),
+          "host": host_cpu(), "cocoeval": cocoeval, "results_leg": leg,
+          "results_leg_rows_equal_across_modes": same_rows})
+    def ap_ar(key):
+        return cocoeval[key]["ap"], cocoeval[key]["ar100"]
+
+    bad = [iou for iou in ("bbox", "segm")
+           if ap_ar(f"{iou}_native") != ap_ar(f"{iou}_numpy")]
+    if bad:
+        raise AssertionError(f"native and numpy matchers disagree: {bad}")
+    if not all(0 < r["ap"] < 1 for r in cocoeval.values()):
+        raise AssertionError(f"cocoeval AP out of (0, 1): {cocoeval}")
+    if not same_rows:
+        raise AssertionError("the results leg's two modes disagree")
+
+
 def ap_table(text: str) -> dict:
     """The 12-number summaries the evaluate CLI printed, by IoU type."""
     out = {}
@@ -2676,6 +2818,24 @@ def bench(batch):
     return launches
 
 
+def serve_probe_checks(dev, rng, batch, params) -> dict:
+    """K1-K4 held against their plain versions at `batch`, the shapes the
+    serve_probe path gives them; each fails the run as at `--batch`.
+    -> {row name: its numbers at `batch`}."""
+    pyramid = [torch.from_numpy(rng.standard_normal(
+        (batch, s, s, 256)).astype(np.float32)).to(dev)
+        .to(torch.bfloat16) for s in (256, 128, 64, 32)]
+    rows = check_nms(dev, rng, batch) + check_roi_align(dev, rng, batch,
+                                                       pyramid)
+    del pyramid
+    rows += check_stem(dev, rng, batch, params)
+    rows += check_chains(dev, rng, batch, params)
+    torch.cuda.empty_cache()
+    return {r["name"]: {"batch": batch, **{k: r[k] for k in (
+        "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}} for r in rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2718,6 +2878,8 @@ def main() -> int:
     del pyramid
     rows += check_stem(dev, rng, args.batch, params)
     rows += check_chains(dev, rng, args.batch, params)
+    # K1-K4 again at the serve_probe path's batch, held the same way
+    at_probe = serve_probe_checks(dev, rng, SERVE_PROBE_MAX_BATCH, params)
     del params
     torch.cuda.empty_cache()
 
@@ -2741,6 +2903,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["serve"] = serve(dev, args.seed, args.batch, full)
     torch.cuda.empty_cache()
+    by_path["serve_probe"] = serve_probe_phase(dev, args.seed, full)
+    torch.cuda.empty_cache()
+    evaluate_bench()
     by_path.update(cli(dev, args.seed, args.batch, full))
     torch.cuda.empty_cache()
     by_path.update(proof(dev, args.seed, args.batch, full))
@@ -2757,6 +2922,8 @@ def main() -> int:
         row["launches_by_path"] = {p: n[key] for p, n in by_path.items()}
         row["train_launches_per_step"] = {c: n[key]
                                           for c, n in train_per_step.items()}
+        if row["name"] in at_probe:
+            row["serve_probe_batch"] = at_probe[row["name"]]
         grad = train_grads.get(row["name"])   # K2, K3, K4 at train shapes
         if grad:
             row["train_fwd_ms"] = grad["fwd_ms"]

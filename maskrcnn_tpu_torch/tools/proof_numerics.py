@@ -6,7 +6,9 @@ trained checkpoint scored under numerics that differ by one knob each.
 
 `--root` is a root that `tools/flagship_proof.py` has trained in
 (`checkpoint.npz`, `config_production.json`, its synthetic COCO set: run
-the proof with `--val-images 320` for a larger val set). The variants,
+the proof with `--val-images 320` for a larger val set). The report's
+`seed` is the proof's, read from its report at the default path
+`<root>/flagship_proof.json` (null where that file is absent). The variants,
 each `cli evaluate` over every val image of that set at the proof's
 evaluate batch of 8:
 
@@ -78,6 +80,15 @@ def _variant(name, base):
             "exact_tf32": (exact, plain(), False)}[name]
 
 
+def _proof_seed(root):
+    """The seed the proof drew the root's dataset and training from."""
+    path = os.path.join(root, "flagship_proof.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)["seed"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
@@ -98,7 +109,7 @@ def main(argv=None) -> int:
     ckpt = os.path.join(root, "checkpoint.npz")
     base = MaskRCNNConfig.from_json(os.path.join(root,
                                                  "config_production.json"))
-    report = {"device": fp.device_line(device),
+    report = {"device": fp.device_line(device), "seed": _proof_seed(root),
               "val_images": n_val}
     results = {}
     for name in VARIANTS:

@@ -143,11 +143,9 @@ def test_cross_mode_deltas_matches_jax(datasets, results_files):
 def tiny_run(tmp_path_factory):
     """The tool at the tiny CPU flags: 2 steps from scratch."""
     root = tmp_path_factory.mktemp("proof")
-    out = root / "report.json"
-    rc = pt_fp.main(tiny() + ["--root", str(root), "--out", str(out),
-                              "--device", "cpu"])
+    rc = pt_fp.main(tiny() + ["--root", str(root), "--device", "cpu"])
     assert rc == 0
-    with open(out) as f:
+    with open(root / "flagship_proof.json") as f:   # the default --out
         return root, json.load(f)
 
 
@@ -205,7 +203,7 @@ def test_proof_numerics_scores_each_variant(tiny_run):
     from maskrcnn_tpu_torch.ops import bottleneck_cuda, stem_cuda
     from maskrcnn_tpu_torch.tools import proof_numerics
 
-    root, _ = tiny_run
+    root, proof = tiny_run
     gates = (stem_cuda.stem_supported, bottleneck_cuda.chain_supported,
              stem_cuda.stem, bottleneck_cuda.fused_bottleneck_chain)
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -219,6 +217,7 @@ def test_proof_numerics_scores_each_variant(tiny_run):
             torch.backends.cuda.matmul.allow_tf32) == tf32
     with open(out) as f:
         report = json.load(f)
+    assert report["seed"] == proof["seed"]
     for name in proof_numerics.VARIANTS:
         assert set(report[name]) == {"first_64", "all_1", "launches",
                                      "peak_gb", "seconds"}

@@ -135,6 +135,9 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt_model.forward(params, np.zeros((1, 128, 128, 3), np.float32), cfg)
     assert MaskRCNNDetector(cfg, params, device="cpu").device.type == "cpu"
+    from maskrcnn_tpu_torch.tools import serve_probe
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_probe.main(["--tiny", "--port", "0"])
 
 
 def test_kernel_gates_stay_off_on_cpu():
