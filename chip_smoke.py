@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100, sm_90a).
 
-    python3 chip_smoke.py [--seed 0] [--batch 2]
+    python3 chip_smoke.py [--seed 0] [--batch 2] [--kernels-only]
 
-Phases, each printing one JSON line, any failure ends the run non-zero:
+Phases, each printing one JSON line, any failure ends the run non-zero
+(a failed kernel row once every kernel row has been read):
 
   device   the card (`torch.cuda.get_device_name`, nvidia-smi name and
            power limit); no card -> exit 2 before anything else
@@ -22,6 +23,11 @@ Phases, each printing one JSON line, any failure ends the run non-zero:
            launches and their device times (torch.profiler), K5 and K6
            with their pool pass's time (`pool_pass_ms`); K3 a second time
            at 804 x 1060, whose pooled grid its tile does not divide;
+           K3 and each K4 block alone (on the plain chain's input to it)
+           also against the float64 plain version over 8 images (the
+           check's input and fresh draws of its shape): kernel - plain in
+           bf16 ulps, signed, held to the rule of `tools/kernel_bias.py` (a
+           lean that the max-error check lets through fails the run);
            then K1-K4 again at batch 8, the serve_probe path's shapes
            (every forward there padded to its max batch 8), held to the
            same tolerances (in the `kernels` line as `serve_probe_batch`)
@@ -328,7 +334,8 @@ def live_bn(params: dict, gen: torch.Generator, gamma=(0.3, 0.8)) -> None:
 
 def record(name, route, source, replaces, ms, plain_ms, err, tol, bnd,
            library_ms, extra=None, ok=None):
-    """One kernel's row; fails unless ok (default: err <= tol)."""
+    """One kernel's row, `ok` (default: err <= tol) in it: `main` reads
+    every kernel's rows and then fails on any that is not ok."""
     t_bound, by = bnd
     row = {"name": name, "route": route, "source": source,
            "replaces": replaces, "launches": None, "max_abs_err": err,
@@ -336,9 +343,8 @@ def record(name, route, source, replaces, ms, plain_ms, err, tol, bnd,
            "bound_by": by, "share_of_bound": t_bound / ms,
            "library_ms": library_ms}
     row.update(extra or {})
+    row["ok"] = bool(err <= tol if ok is None else ok)
     emit({"phase": name, **row})
-    if not (err <= tol if ok is None else ok):
-        raise AssertionError(f"{name}: max abs err {err} over tol {tol}")
     return row
 
 
@@ -617,10 +623,20 @@ def over_tol(got, want, tol) -> tuple[float, int, str]:
     return err.max().item(), bad, f"{text} + {of_max}*max|plain| each"
 
 
+def bias_draws(batch) -> int:
+    """Inputs the bias readings of K3 and K4 take at `batch`: the check's
+    own and fresh draws of its shape, 8 images in all (the readings'
+    spread shrinks with the elements they see)."""
+    return max(1, 8 // batch)
+
+
 def check_stem(dev, rng, batch, params):
     """K3 at the main path's 1024^2, then at a size whose pooled grid
-    (201 x 265) the kernel's 12 x 7 tile does not divide."""
+    (201 x 265) the kernel's 12 x 7 tile does not divide. Each also
+    against the float64 plain version: the lean of kernel - plain
+    (`bias`, the rule of `tools/kernel_bias.py`)."""
     from maskrcnn_tpu_torch.ops import stem_cuda
+    from maskrcnn_tpu_torch.tools import kernel_bias as kb
     w, bias = stem_cuda.fold_stem_weights(params["conv1"], params["bn_conv1"])
     wc = w.permute(3, 2, 0, 1).contiguous()
     bc = bias.to(torch.bfloat16)
@@ -632,6 +648,12 @@ def check_stem(dev, rng, batch, params):
         want = stem_cuda.stem_plain(images, w, bias).float()
         got = stem_cuda.stem(images, w, bias).float()
         err, bad, tol = over_tol(got, want, STEM_TOL)
+        stats = kb.BiasStats()
+        kb.audit_stem(stats, images, w, bias)
+        for _ in range(bias_draws(batch) - 1):
+            kb.audit_stem(stats, torch.from_numpy(rng.uniform(
+                -124, 132, images.shape).astype(np.float32)).to(dev), w, bias)
+        lean = kb.decided(stats)
         call = lambda: stem_cuda.stem(images, w, bias)
         ms = cuda_ms(call, 20)
         ms_graph = cuda_ms_graph(call)
@@ -653,8 +675,9 @@ def check_stem(dev, rng, batch, params):
             {"ms_graph": ms_graph, "ms_l2_cold": ms_cold,
              **tflops(ms, flops), "shape": list(images.shape),
              "elements_over_tol": bad, **kernels_per_call(call),
-             "plain_max_abs": want.abs().max().item()},
-            ok=bad == 0))
+             "plain_max_abs": want.abs().max().item(), "bias": lean,
+             "bias_rule": kb.RULE},
+            ok=bad == 0 and lean["rule"]["unbiased"]))
         del images, want, got
     return rows
 
@@ -673,7 +696,12 @@ def chain_flops(x_shape, blocks) -> float:
 
 
 def check_chains(dev, rng, batch, params):
+    """Each K4 chain against the plain chain, then each block alone on
+    the plain chain's input to it against the float32 and float64 plain
+    block: the lean of kernel - plain (`bias_by_block`, the rule of
+    `tools/kernel_bias.py`)."""
     from maskrcnn_tpu_torch.ops import bottleneck_cuda as bc
+    from maskrcnn_tpu_torch.tools import kernel_bias as kb
     rows = []
     for stage, letters, hw, cin in ((2, "abc", 256, 64), (3, "bcd", 128, 512)):
         blocks = bc.fold_bottleneck_chain(params, stage, letters)
@@ -682,6 +710,14 @@ def check_chains(dev, rng, batch, params):
         want = bc.chain_plain(x, blocks).float()
         got = bc.fused_bottleneck_chain(x, blocks).float()
         err, bad, tol = over_tol(got, want, CHAIN_TOL)
+        stats = [kb.BiasStats() for _ in blocks]
+        kb.audit_chain(stats, x, blocks)
+        for _ in range(bias_draws(batch) - 1):
+            kb.audit_chain(stats, torch.from_numpy(rng.standard_normal(
+                x.shape).astype(np.float32)).to(dev), blocks)
+        lean = {f"res{stage}{letter}": kb.decided(st)
+                for letter, st in zip(letters, stats)}
+        del stats
         ms = cuda_ms(lambda: bc.fused_bottleneck_chain(x, blocks), 10)
         ms_cold = cuda_ms_l2_cold(
             lambda: bc.fused_bottleneck_chain(x, blocks), 10)
@@ -717,8 +753,10 @@ def check_chains(dev, rng, batch, params):
              "elements_over_tol": bad,
              **kernels_per_call(
                  lambda: bc.fused_bottleneck_chain(x, blocks)),
-             "plain_max_abs": want.abs().max().item()},
-            ok=bad == 0))
+             "plain_max_abs": want.abs().max().item(),
+             "bias_by_block": lean, "bias_rule": kb.RULE},
+            ok=bad == 0 and all(r["rule"]["unbiased"]
+                                for r in lean.values())))
     return rows
 
 
@@ -2833,13 +2871,18 @@ def serve_probe_checks(dev, rng, batch, params) -> dict:
     torch.cuda.empty_cache()
     return {r["name"]: {"batch": batch, **{k: r[k] for k in (
         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}} for r in rows}
+        "library_ms", "bias", "bias_by_block", "ok") if k in r}}
+        for r in rows}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="the device, build and K1..K6 phases, then a "
+                         "kernels line without launches and no result "
+                         "line: two kernel builds compared in one call")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2882,6 +2925,19 @@ def main() -> int:
     at_probe = serve_probe_checks(dev, rng, SERVE_PROBE_MAX_BATCH, params)
     del params
     torch.cuda.empty_cache()
+    failed = ([r["name"] for r in rows if not r["ok"]]
+              + [f"{name} at batch {r['batch']}"
+                 for name, r in at_probe.items() if not r["ok"]])
+    if args.kernels_only:
+        for row in rows:
+            if row["name"] in at_probe:
+                row["serve_probe_batch"] = at_probe[row["name"]]
+        emit({"kernels": rows})
+        print(smi, flush=True)
+        return 1 if failed else 0
+    if failed:
+        raise AssertionError("kernel rows failed their checks (their lines "
+                             "above have the readings): " + ", ".join(failed))
 
     native_phase(args.seed)
     check_small_forward(dev, args.seed)

@@ -29,6 +29,12 @@
 //    warps: each weight byte is read from L2 once per block (557 KB per
 //    res3 block, 34 chunks). Stage 1's x halo chunk (and a projection's x
 //    chunk) rides in the same ring slot.
+//  * Every product through mma16816_rn (roi_head_common.cuh): each
+//    m16n8k16's 16-term sum lands in a zero accumulator and joins the
+//    running float32 sum in an FADD, round to nearest, as a float32 sum
+//    rounds. Accumulating in the tensor core (d += A * B) rounds toward
+//    zero at each of the 4-72 steps of a K: that made each block's mean
+//    error 1.6-3.7x the plain version's (PERF.md).
 //  * Tensor cores through mma.sync m16n8k16 fed by ldmatrix: A rows are
 //    addressed per lane, which the 3x3 needs (its A rows are the t1
 //    positions shifted by the tap, a window that starts on any row and
@@ -44,14 +50,19 @@
 //       pixel (r, c) is t1 position (r + dy) * 18 + c + dx. Warps 4 x 2: two
 //       output rows x M/2 columns each.
 //    3. out = relu((t2 @ w3 + b3) + shortcut), in column chunks of 128 (64
-//       where Cout is not a multiple of 128); a projection's x @ ws adds
-//       into the same accumulator (+ bs after b3), an identity shortcut is
-//       read from x (issued before the chunk's products). The rounded
-//       chunk is staged in shared memory (t1 is dead by then) and leaves
-//       in 16-byte pieces, each pixel's columns contiguous.
+//       where Cout is not a multiple of 128, or the block projects); an
+//       identity shortcut is read from x (issued before the chunk's
+//       products). A projection sums x @ ws in an accumulator of its own
+//       and adds (t2 @ w3 + b3) + (x @ ws + bs), in the order of the
+//       plain version and the TPU kernel. One running sum of both
+//       products with both biases added last had kept the uncentred sums
+//       (before BN's shift) in its intermediates: at trained weights
+//       res2a's mean error was 2.2x the plain version's (PERF.md).
+//       The rounded chunk is staged in shared memory (t1 is dead by then)
+//       and leaves in 16-byte pieces, each pixel's columns contiguous.
 //  * t1 and t2 stay in shared memory as bf16. Epilogues (bias, ReLU, SAME
 //    mask, residual, bf16 rounding) act on the accumulator registers where
-//    they sit, in the plain version's order.
+//    they sit, with the plain version's bf16 rounding points.
 //  * Shared memory: ring 3 x 45,056 B + t1 52,224 B + t2 34,816 B =
 //    222,208 B at mid 128; 135,168 + 34,816 (t1 sized for the staged
 //    output) + 18,432 = 188,416 B at mid 64: one block per SM. res3 (128^2,
@@ -106,7 +117,7 @@ struct Args {
   int h, wd, cin, cout, proj;
 };
 
-template <int M, int NB3>
+template <int M, int NB3, bool PROJ>
 __global__ void __launch_bounds__(kThreads, 1)
 bottleneck_kernel(Args g) {
   using L = Layout<M>;
@@ -134,7 +145,7 @@ bottleneck_kernel(Args g) {
 
   const int n1c = cin / kKC;
   const int n2c = 9 * kMC;
-  const int per_q = kMC + (g.proj ? n1c : 0);
+  const int per_q = kMC + (PROJ ? n1c : 0);
   const int total = n1c + n2c + (cout / NB3) * per_q;
 
   // Chunk j of the block's weight stream into ring slot j % S, with the x
@@ -247,8 +258,8 @@ bottleneck_kernel(Args g) {
                                    np * 16 + lcol) * 2);
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
-            mma16816(acc[i][2 * np], a[i], b[0], b[1]);
-            mma16816(acc[i][2 * np + 1], a[i], b[2], b[3]);
+            mma16816_rn(acc[i][2 * np], a[i], b[0], b[1]);
+            mma16816_rn(acc[i][2 * np + 1], a[i], b[2], b[3]);
           }
         }
       }
@@ -304,8 +315,8 @@ bottleneck_kernel(Args g) {
                                      np * 16 + lcol) * 2);
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
-              mma16816(acc[i][2 * np], a[i], b[0], b[1]);
-              mma16816(acc[i][2 * np + 1], a[i], b[2], b[3]);
+              mma16816_rn(acc[i][2 * np], a[i], b[0], b[1]);
+              mma16816_rn(acc[i][2 * np + 1], a[i], b[2], b[3]);
             }
           }
         }
@@ -330,13 +341,15 @@ bottleneck_kernel(Args g) {
 
   // ---- stage 3: out = relu((t2 @ w3 + b3) + shortcut) -------------------
   for (int q = 0; q < cout / NB3; ++q) {
-    float acc[2][kN3][4];
+    // t2 @ w3, and a projection's x @ ws apart from it (as the plain
+    // version sums them)
+    float acc[2][kN3][4], accs[2][kN3][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int n = 0; n < kN3; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = accs[i][n][e] = 0.0f;
     // The epilogue's global reads (biases, identity residual), issued
     // before the products so their latency hides under them.
     float2 bias[kN3], sbias[kN3];
@@ -345,8 +358,8 @@ bottleneck_kernel(Args g) {
     for (int n = 0; n < kN3; ++n) {
       const int col = q * NB3 + wn * (NB3 / 2) + n * 8 + 2 * tq;
       bias[n] = make_float2(__ldg(g.b3 + col), __ldg(g.b3 + col + 1));
-      sbias[n] = g.proj ? make_float2(__ldg(g.bs + col), __ldg(g.bs + col + 1))
-                        : make_float2(0.0f, 0.0f);
+      sbias[n] = PROJ ? make_float2(__ldg(g.bs + col), __ldg(g.bs + col + 1))
+                      : make_float2(0.0f, 0.0f);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -354,7 +367,7 @@ bottleneck_kernel(Args g) {
           const int p = wm * 32 + i * 16 + gq + 8 * hh;
           const int gy = y0 + p / kTW, gx = x0 + p % kTW;
           res[i][n][hh] = 0u;
-          if (!g.proj && gy < h && gx < wd) {
+          if (!PROJ && gy < h && gx < wd) {
             const size_t pix = ((size_t)bimg * h + gy) * wd + gx;
             res[i][n][hh] = __ldg(reinterpret_cast<const unsigned int*>(
                 g.x + pix * cin + col));
@@ -362,14 +375,10 @@ bottleneck_kernel(Args g) {
         }
       }
     }
-    for (int r = 0; r < per_q; ++r, ++j) {
-      acquire(j);
-      const uint32_t slot = ring + (j % S) * kSlot;
-      // A: t2 for the first M/64 chunks, then the staged x (projection).
-      const bool xa = r >= kMC;
-      const uint32_t abase = xa ? slot + kSlotB : t2s;
-      const int lda = xa ? kLdA : kLdT;
-      const int acol = xa ? 0 : r * kKC;
+    // One chunk's products into d: A rows from abase (row stride lda,
+    // from column acol), B from the ring slot.
+    auto products = [&](float (&d)[2][kN3][4], uint32_t slot,
+                        uint32_t abase, int lda, int acol) {
 #pragma unroll
       for (int kk = 0; kk < kKC / 16; ++kk) {
         uint32_t a[2][4];
@@ -384,10 +393,20 @@ bottleneck_kernel(Args g) {
                                    np * 16 + lcol) * 2);
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            mma16816(acc[i][2 * np], a[i], b[0], b[1]);
-            mma16816(acc[i][2 * np + 1], a[i], b[2], b[3]);
+            mma16816_rn(d[i][2 * np], a[i], b[0], b[1]);
+            mma16816_rn(d[i][2 * np + 1], a[i], b[2], b[3]);
           }
         }
+      }
+    };
+    for (int r = 0; r < per_q; ++r, ++j) {
+      acquire(j);
+      const uint32_t slot = ring + (j % S) * kSlot;
+      // A: t2 for the first M/64 chunks, then the staged x (projection).
+      if (PROJ && r >= kMC) {
+        products(accs, slot, slot + kSlotB, kLdA, 0);
+      } else {
+        products(acc, slot, t2s, kLdT, r * kKC);
       }
     }
 #pragma unroll
@@ -400,9 +419,9 @@ bottleneck_kernel(Args g) {
           const int p = wm * 32 + i * 16 + gq + 8 * hh;
           float v0 = acc[i][n][2 * hh] + bias[n].x;
           float v1 = acc[i][n][2 * hh + 1] + bias[n].y;
-          if (g.proj) {
-            v0 += sbias[n].x;
-            v1 += sbias[n].y;
+          if (PROJ) {
+            v0 += accs[i][n][2 * hh] + sbias[n].x;
+            v1 += accs[i][n][2 * hh + 1] + sbias[n].y;
           } else {
             const float2 xv = __bfloat1622float2(
                 *reinterpret_cast<const __nv_bfloat162*>(&res[i][n][hh]));
@@ -430,15 +449,16 @@ bottleneck_kernel(Args g) {
   cp_async_wait<0>();
 }
 
-template <int M, int NB3>
+template <int M, int NB3, bool PROJ>
 int launch(const Args& a, int b, cudaStream_t st) {
   const size_t smem = Layout<M>::kTotal;
   cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_kernel<M, NB3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bottleneck_kernel<M, NB3, PROJ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.wd + kTW - 1) / kTW, (a.h + kTH - 1) / kTH, b);
-  bottleneck_kernel<M, NB3><<<grid, kThreads, smem, st>>>(a);
+  bottleneck_kernel<M, NB3, PROJ><<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -464,11 +484,20 @@ int mrt_bottleneck(const void* x, const void* w1, const void* b1,
                (const bf16*)w2, (const float*)b2, (const bf16*)w3,
                (const float*)b3, (const bf16*)ws, (const float*)bs,
                (bf16*)out, h, wd, cin, cout, proj};
+  // A projection block takes 64-column chunks: its two stage-3
+  // accumulators then hold what one does at 128.
+  if (proj) {
+    if (m == 64) return launch<64, 64, true>(a, b, st);
+    if (m == 128) return launch<128, 64, true>(a, b, st);
+    return (int)cudaErrorInvalidValue;
+  }
   const bool wide = cout % 128 == 0;
   if (m == 64)
-    return wide ? launch<64, 128>(a, b, st) : launch<64, 64>(a, b, st);
+    return wide ? launch<64, 128, false>(a, b, st)
+                : launch<64, 64, false>(a, b, st);
   if (m == 128)
-    return wide ? launch<128, 128>(a, b, st) : launch<128, 64>(a, b, st);
+    return wide ? launch<128, 128, false>(a, b, st)
+                : launch<128, 64, false>(a, b, st);
   return (int)cudaErrorInvalidValue;
 }
 

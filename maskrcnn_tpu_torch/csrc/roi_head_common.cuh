@@ -50,6 +50,20 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += A * B as a float32 sum rounds it: the product's 16 terms summed by
+// the tensor core into a zero accumulator, then added to d in FADDs (round
+// to nearest). The tensor core's own d += A * B rounds toward zero at
+// every step, which over a long K grows each sum's error (K4: 1.6-3.7x
+// the plain version's, PERF.md).
+__device__ __forceinline__ void mma16816_rn(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma16816(t, a, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }

@@ -20,7 +20,16 @@
 // tile's 25 x 15 conv positions (375, six 64-row tiles, three for each of
 // the block's two warpgroups), N = 64 channels, K = the 7x7x3 taps ordered
 // (dy, dx, c) and padded to 22 per dy (21 taps and a zero), 154 padded to
-// 160: 10 steps of wgmma m64n64k16, bf16 in, float32 accumulate.
+// 160: 10 steps of wgmma m64n64k16, bf16 in, float32 out.
+//  * Each step's 16-term product goes to a fresh accumulator (scale-d 0)
+//    and joins the running float32 sum in an FADD, which rounds to nearest.
+//    The tensor core's own accumulation (d += A * B) rounds its result
+//    toward zero: over 10 steps that leaned the kernel's outputs down
+//    against its float32 plain version, 20 elements below the float64
+//    reference for each one above, and doubled its mean error (PERF.md).
+//    The steps run one after another: a second partial accumulator to
+//    overlap them would pass the 128 registers a thread of two blocks per
+//    SM may hold.
 //  * A comes from registers, loaded straight from the staged bf16 input
 //    patch (55 rows of 35 pixels x 3 channels, row stride 106 elements): for
 //    a fixed dy the 21 (dx, c) values of conv position (r, q) are contiguous
@@ -30,7 +39,7 @@
 //    which wgmma's register A shares). Their 12-byte row starts suit
 //    neither ldmatrix nor a wgmma descriptor; an im2col tile that would
 //    suit them cost more to write than it saved (PERF.md). The A
-//    registers of k step s are kept until the wait that retires step s.
+//    registers of a k step are kept until the wait that retires it.
 //  * B is the folded kernel, repacked to the padded K layout ([160][64]
 //    bf16, 20 KB, 128-byte swizzled as TMA would write it) once per
 //    persistent block, and read by wgmma in its transposed-B mode.
@@ -85,9 +94,10 @@ constexpr size_t kConvBytes = (size_t)kPos * kLd * 2;
 constexpr size_t kSmem = 1024 + kBBytes + kRawBytes + kPatchBytes +
                         kConvBytes + kCo * sizeof(float);
 
-// d (64 x 64 float32, this thread's 32) += A (64 x 16, this warp's 16 rows
+// d (64 x 64 float32, this thread's 32) = A (64 x 16, this warp's 16 rows
 // in registers, mma.m16n8k16's A layout) * B (16 x 64, N-major, from shared
-// memory, 128-byte swizzled): the warpgroup's m64n64k16, B transposed.
+// memory, 128-byte swizzled): the warpgroup's m64n64k16, B transposed,
+// scale-d 0 (d is written, not read).
 __device__ __forceinline__ void wgmma_64(float (&d)[32],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
@@ -107,7 +117,7 @@ __device__ __forceinline__ void wgmma_64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
 }
 
 // Keeps registers an asynchronous wgmma reads alive (and unmoved) until
@@ -218,33 +228,32 @@ stem_kernel(const float* __restrict__ img, const bf16* __restrict__ w,
     // tiles g, g + 2, ..., warp q of it rows 16q..16q+15 of each
 #pragma unroll 1
     for (int mt = wg; mt < kM64; mt += 2) {
-      float acc[32];
+      float acc[32], part[32];
 #pragma unroll
       for (int r = 0; r < 32; ++r) acc[r] = 0.0f;
       const int row0 = 64 * mt + 16 * wq + gq;
       const int base0 = pos_offset(row0), base1 = pos_offset(row0 + 8);
-      uint32_t a[2][4];                     // [k step % 2][reg]
+      uint32_t a[4];
 #pragma unroll
       for (int ks = 0; ks < kK / 16; ++ks) {
         const int o0 = k_offset(16 * ks + 2 * tq);
         const int o1 = k_offset(16 * ks + 2 * tq + 8);
-        uint32_t (&cur)[4] = a[ks & 1];
-        cur[0] = lds32(patch + base0 + o0);
-        cur[1] = lds32(patch + base1 + o0);
-        cur[2] = lds32(patch + base0 + o1);
-        cur[3] = lds32(patch + base1 + o1);
+        a[0] = lds32(patch + base0 + o0);
+        a[1] = lds32(patch + base1 + o0);
+        a[2] = lds32(patch + base0 + o1);
+        a[3] = lds32(patch + base1 + o1);
         wgmma_fence();
-        wgmma_64(acc, cur, sw128_desc(wbs + ks * 2048, 8192, 1024));
+        wgmma_64(part, a, sw128_desc(wbs + ks * 2048, 8192, 1024));
         wgmma_commit();
-        if (ks > 0) {
-          wgmma_wait<1>();
-          keep(a[(ks - 1) & 1]);
+        wgmma_wait<0>();
+        keep(a);
+        // the step's sum joins the running one in a round-to-nearest add
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          asm volatile("" : "+f"(part[r])::"memory");
+          acc[r] += part[r];
         }
       }
-      wgmma_wait<0>();
-      keep(a[(kK / 16 - 1) & 1]);
-#pragma unroll
-      for (int r = 0; r < 32; ++r) asm volatile("" : "+f"(acc[r])::"memory");
       // epilogue: bias, ReLU, zero past the conv grid, bf16 into the tile
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {

@@ -65,9 +65,13 @@ def fold_bottleneck_chain(params: dict, stage: int, letters: str,
     return blocks
 
 
-def _block_plain(x: torch.Tensor, blk: dict) -> torch.Tensor:
+def _block_plain(x: torch.Tensor, blk: dict,
+                 acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One block of the chain: bf16 at x, t1, t2 and the output, sums in
+    `acc_dtype` (torch.float64: a reference whose only rounding is the
+    scheme's, `tools/kernel_bias.py`)."""
     b, h, w, _ = x.shape
-    f = torch.float32
+    f = acc_dtype
     xf = x.to(torch.bfloat16).to(f)
     t1 = torch.relu(xf @ blk["w1"].to(f) + blk["b1"]).to(torch.bfloat16)
     m = t1.shape[-1]
@@ -82,9 +86,10 @@ def _block_plain(x: torch.Tensor, blk: dict) -> torch.Tensor:
     return torch.relu(t3 + short).to(torch.bfloat16)
 
 
-def chain_plain(x: torch.Tensor, blocks: list[dict]) -> torch.Tensor:
+def chain_plain(x: torch.Tensor, blocks: list[dict],
+                acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     for blk in blocks:
-        x = _block_plain(x, blk)
+        x = _block_plain(x, blk, acc_dtype)
     return x
 
 

@@ -43,12 +43,15 @@ def fold_stem_weights(conv1: dict, bn: dict, eps: float = 1e-3):
     return (k * scale).to(torch.bfloat16).contiguous(), b * scale + shift
 
 
-def stem_plain(images: torch.Tensor, w: torch.Tensor,
-               bias: torch.Tensor) -> torch.Tensor:
-    x = images.to(torch.bfloat16).to(torch.float32).permute(0, 3, 1, 2)
-    y = F.conv2d(x, w.to(torch.float32).permute(3, 2, 0, 1), stride=2,
-                 padding=3)
-    y = torch.relu(y + bias.to(torch.float32)[None, :, None, None])
+def stem_plain(images: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's function. `acc_dtype` torch.float64 keeps the bf16
+    roundings (images, output) and sums in float64: a reference whose only
+    rounding is the scheme's (`tools/kernel_bias.py`)."""
+    f = acc_dtype
+    x = images.to(torch.bfloat16).to(f).permute(0, 3, 1, 2)
+    y = F.conv2d(x, w.to(f).permute(3, 2, 0, 1), stride=2, padding=3)
+    y = torch.relu(y + bias.to(f)[None, :, None, None])
     y = F.max_pool2d(F.pad(y, (0, 1, 0, 1), value=float("-inf")), 3, 2)
     return y.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
 

@@ -42,7 +42,7 @@ ABLATIONS = {
     "k4_no_output_stores": (
         "bottleneck.cu", "      *reinterpret_cast<uint4*>(g.out + pix",
         "      if (pix == ~(size_t)0) *reinterpret_cast<uint4*>(g.out + pix"),
-    "k4_no_mma": ("bottleneck.cu", "mma16816(", "(void)("),
+    "k4_no_mma": ("bottleneck.cu", "mma16816_rn(", "(void)("),
     "k4_no_barrier": ("bottleneck.cu",
                       "    cp_async_wait<S - 2>();\n    __syncthreads();",
                       "    cp_async_wait<S - 2>();"),
@@ -58,7 +58,7 @@ ABLATIONS = {
     # rounding); everything but the tensor-core products; the 8 x 7 tile.
     "k3_no_pool": ("stem.cu", _K3_POOL, "    continue;\n" + _K3_POOL),
     "k3_staging_only": ("stem.cu", _K3_CONV, "    continue;\n" + _K3_CONV),
-    "k3_no_mma": ("stem.cu", "wgmma_64(acc, cur,", "(void)(acc, cur,"),
+    "k3_no_mma": ("stem.cu", "wgmma_64(part, a,", "(void)(part, a,"),
     "k3_tile_8x7": ("stem.cu", "constexpr int kTileH = 12, kTileW = 7;",
                     "constexpr int kTileH = 8, kTileW = 7;"),
     # K2: four items in flight a thread instead of two.

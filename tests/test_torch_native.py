@@ -261,6 +261,43 @@ def test_paste_matches_jax(native, box):
     assert got.sum() == region.sum()
 
 
+# BOXES on their 240 x 320 canvas, and the falsifying example of the JAX
+# package's `tests/test_properties.py::test_paste_mask_bounds` (y1 0, x1
+# -2, 1 x 1: wholly left of the image) on that test's 480 x 640 canvas
+PASTE_CASES = ([(box, (240, 320)) for box in BOXES]
+               + [((0.0, -2.0, 1.0, -1.0), (480, 640))])
+
+
+@pytest.mark.parametrize("box,shape", PASTE_CASES)
+def test_paste_fallback_matches_native(native, monkeypatch, box, shape):
+    """The port's PIL fallback paste (the path a process takes where its
+    native library did not load) against its native paste: the same
+    window and region place, equal up to the threshold-boundary flip
+    budget of `tests/test_imageio.py` (PIL resizes in fixed point), and
+    empty outside the clipped window. The JAX fallback raises on a box
+    wholly outside the image (a negative slice stop,
+    `maskrcnn_tpu/pipeline/detector.py:315`); the port's guards the empty
+    window, and both of its paths return nothing there."""
+    mask = np.random.default_rng(11).random((28, 28)).astype(np.float32)
+    native_full = pt_det.paste_mask(mask, box, shape)
+    native_region, ny, nx = pt_det.paste_mask_region(mask, box, shape)
+    monkeypatch.setattr(pt_native, "get_imageio_lib", lambda: None)
+    full = pt_det.paste_mask(mask, box, shape)
+    region, ry, rx = pt_det.paste_mask_region(mask, box, shape)
+    assert full.dtype == np.dtype(bool) and full.shape == shape
+    assert (full != native_full).mean() < 2e-3
+    assert (ry, rx) == (ny, nx) and region.shape == native_region.shape
+    yy1, xx1, yy2, xx2 = pt_det.paste_window(box, shape)
+    for canvas, reg in ((full, region), (native_full, native_region)):
+        outside = canvas.copy()
+        if yy1 < yy2 and xx1 < xx2:
+            outside[yy1:yy2, xx1:xx2] = False
+            np.testing.assert_array_equal(reg, canvas[yy1:yy2, xx1:xx2])
+        else:
+            assert reg.size == 0 and not canvas.any()
+        assert not outside.any()
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_rle_codec_and_iou_match_jax(native, seed):
     ms = _masks(seed)

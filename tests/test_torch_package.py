@@ -105,6 +105,40 @@ def test_gpu_test_file_imports_no_jax():
     assert out.stdout.split()[0] == "0", out.stdout
 
 
+def test_kernel_bias_tool_and_its_tests_import_no_jax(monkeypatch):
+    """The K3/K4 bias audit and its CPU tests load neither JAX nor the JAX
+    package, and the tool needs a card unless asked for the CPU."""
+    code = (_BLOCK_JAX + "import maskrcnn_tpu_torch.tools.kernel_bias\n"
+            "import tests.test_torch_kernel_bias\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'maskrcnn_tpu', 'tools'))\n"
+            "print(len(bad), bad[:5])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "0", out.stdout
+    from maskrcnn_tpu_torch.tools import kernel_bias
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernel_bias.main(["--root", os.path.join(ROOT, "no_such_root")])
+
+
+def _ablations():
+    from maskrcnn_tpu_torch.tools.probe_kernels import ABLATIONS
+    return ABLATIONS
+
+
+@pytest.mark.parametrize("name", sorted(_ablations()))
+def test_probe_ablation_finds_its_source_text(name):
+    """Each probe of `tools/probe_kernels.py` patches text that its
+    kernel source still holds (on the card it raises otherwise, after the
+    build of every probe before it)."""
+    src, old, new = _ablations()[name]
+    with open(os.path.join(ROOT, "maskrcnn_tpu_torch", "csrc", src)) as f:
+        text = f.read()
+    assert old in text and old != new
+
+
 def test_gpu_tests_collect_and_skip_without_jax_or_conftest():
     """As on the card's machine (no JAX; tests/conftest.py imports it, so
     the run skips it): every `gpu` test is collected and runs to an end

@@ -102,10 +102,11 @@ def test_numerics_band_reads_the_committed_reports(tmp_path):
     assert pt_band.main(["--inputs", *PROOFS, "--numerics", *NUMERICS,
                          "--out", str(out)]) == 0
     n = json.loads(out.read_text())["numerics"]
-    assert n["seeds"] == [0, 1]          # from the file names
-    # seed 1's `production_plain_k3k4` has no seed-0 counterpart
+    assert n["seeds"] == [0, 1]
+    # every variant at both seeds (seed 0's report was re-run with all six)
     assert n["variants"] == ["production", "production_layers",
-                             "bf16_table_anchors", "exact_fp32", "exact_tf32"]
+                             "production_plain_k3k4", "bf16_table_anchors",
+                             "exact_fp32", "exact_tf32"]
     proofs = [json.loads(open(p).read()) for p in PROOFS]
     for mode in ("production", "exact_fp32"):
         for t in ("bbox", "segm"):
