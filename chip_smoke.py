@@ -23,11 +23,13 @@ Phases, each printing one JSON line, any failure ends the run non-zero
            launches and their device times (torch.profiler), K5 and K6
            with their pool pass's time (`pool_pass_ms`); K3 a second time
            at 804 x 1060, whose pooled grid its tile does not divide;
-           K3 and each K4 block alone (on the plain chain's input to it)
-           also against the float64 plain version over 8 images (the
-           check's input and fresh draws of its shape): kernel - plain in
-           bf16 ulps, signed, held to the rule of `tools/kernel_bias.py` (a
-           lean that the max-error check lets through fails the run);
+           K3, each K4 block alone (on the plain chain's input to it), K5
+           (h1, logits, deltas) and K6 (conv 3, conv 4, masks) also
+           against the float64 plain version over 8 images (the check's
+           input and fresh draws of its shape; K5/K6: new pyramids and
+           ROIs, valid ROIs only): kernel - plain in bf16 ulps, signed,
+           held to the rule of `tools/kernel_bias.py` (a lean or a larger
+           error that the max-error check lets through fails the run);
            then K1-K4 again at batch 8, the serve_probe path's shapes
            (every forward there padded to its max batch 8), held to the
            same tolerances (in the `kernels` line as `serve_probe_batch`)
@@ -496,10 +498,36 @@ def distinct_cells(ys, xs, level, valid, n, hw):
 # K5 pool-7 + classifier head, K6 pool-14 + mask head
 # --------------------------------------------------------------------------
 
+def fresh_pyramid(rng, like):
+    """New draws of a pyramid's shape (the bias readings' further inputs)."""
+    return [torch.from_numpy(rng.standard_normal(tuple(f.shape))
+                             .astype(np.float32)).to(f.device)
+            .to(torch.bfloat16) for f in like]
+
+
+def head_bias(audit, names, rng, batch, pyramid, n, draw):
+    """K5's or K6's rows of the rule of `tools/kernel_bias.py` over
+    `bias_draws(batch)` inputs: `draw(rng, pyramid)` -> the audit's
+    arguments after the pyramid; the first on the check's own pyramid."""
+    from maskrcnn_tpu_torch.tools import kernel_bias as kb
+    stats = {name: kb.BiasStats() for name in names}
+    for i in range(bias_draws(batch)):
+        pyr = pyramid if i == 0 else fresh_pyramid(rng, pyramid)
+        args = draw(rng, pyr)
+        audit(stats, pyr, *args, kb.head_rows(batch, n, args[3]))
+        del pyr, args
+    return {name: kb.decided(st) for name, st in stats.items()}
+
+
 def check_fused_heads(dev, rng, batch, pyramid, params):
+    """K5 and K6 against their plain versions (max error; K5's argmax),
+    and each against its float64 plain version too: the lean of kernel -
+    plain (`bias_by_row`, the rule of `tools/kernel_bias.py`, over
+    `bias_draws(batch)` inputs)."""
     from maskrcnn_tpu_torch.models import heads
     from maskrcnn_tpu_torch.ops import roi_align as ra
     from maskrcnn_tpu_torch.ops import roi_align_cuda as rac
+    from maskrcnn_tpu_torch.tools import kernel_bias as kb
     hw = [(f.shape[1], f.shape[2]) for f in pyramid]
     c = pyramid[0].shape[-1]
     nc = 81
@@ -522,6 +550,15 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
     tol = 0.02 * want[:, lanes].abs().max().item()
     argmax_same = (got[:, :nc].argmax(1) == want[:, :nc].argmax(1)
                    ).float().mean().item()
+
+    def draw_rois(rng, pyr):
+        if pyr is pyramid:
+            return (*prep, n, head, nc)
+        return (*ra.prepare(spread_rois(rng, batch, n).to(dev).reshape(-1, 4),
+                            hw, (1024, 1024), 224.0, 7), n, head, nc)
+
+    lean = head_bias(kb.audit_classifier_head, kb.K5_ROWS, rng, batch,
+                     pyramid, n, draw_rois)
     ms = cuda_ms(lambda: rac.roi_classifier_head(*args), 20)
     ms_cold = cuda_ms_l2_cold(lambda: rac.roi_classifier_head(*args), 10)
     plain_ms = cuda_ms(lambda: rac.classifier_head_plain(*args), 3)
@@ -547,8 +584,10 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
          **per_call, "pool_pass_ms": pool_pass_ms(per_call),
          "distinct_cells": cells,
          "library": "K2 pool 7, then models/heads.py (cuBLAS): several "
-                    "calls", "plain_max_abs": want.abs().max().item()},
-        ok=err <= tol and argmax_same >= 0.995))
+                    "calls", "plain_max_abs": want.abs().max().item(),
+         "bias_by_row": lean, "bias_rule": kb.RULE},
+        ok=err <= tol and argmax_same >= 0.995
+        and all(r["rule"]["unbiased"] for r in lean.values())))
 
     n = 100
     rois = spread_rois(rng, batch, n).to(dev)
@@ -560,6 +599,17 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
     want = rac.mask_head_plain(*args)
     got = rac.roi_mask_head(*args)
     err = (got - want).abs().max().item()
+
+    def draw_dets(rng, pyr):
+        if pyr is pyramid:
+            return (*prep, n, mask, ids)
+        return (*ra.prepare(spread_rois(rng, batch, n).to(dev).reshape(-1, 4),
+                            hw, (1024, 1024), 224.0, 14), n, mask,
+                torch.from_numpy(rng.integers(1, nc, batch * n)
+                                 .astype(np.int32)).to(dev))
+
+    lean = head_bias(kb.audit_mask_head, kb.K6_ROWS, rng, batch, pyramid,
+                     n, draw_dets)
     ms = cuda_ms(lambda: rac.roi_mask_head(*args), 20)
     ms_cold = cuda_ms_l2_cold(lambda: rac.roi_mask_head(*args), 10)
     plain_ms = cuda_ms(lambda: rac.mask_head_plain(*args), 3)
@@ -583,7 +633,10 @@ def check_fused_heads(dev, rng, batch, pyramid, params):
          "rois": [batch, n], "distinct_cells": cells,
          "library": "K2 pool 14, then models/heads.py (cuDNN convs, "
                     "einsum select): several calls",
-         "mean_abs_err": (got - want).abs().mean().item()}))
+         "mean_abs_err": (got - want).abs().mean().item(),
+         "bias_by_row": lean, "bias_rule": kb.RULE},
+        ok=err <= 1e-2 and all(r["rule"]["unbiased"]
+                               for r in lean.values())))
     return rows
 
 
@@ -624,7 +677,7 @@ def over_tol(got, want, tol) -> tuple[float, int, str]:
 
 
 def bias_draws(batch) -> int:
-    """Inputs the bias readings of K3 and K4 take at `batch`: the check's
+    """Inputs the bias readings of K3-K6 take at `batch`: the check's
     own and fresh draws of its shape, 8 images in all (the readings'
     spread shrinks with the elements they see)."""
     return max(1, 8 // batch)

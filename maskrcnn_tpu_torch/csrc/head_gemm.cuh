@@ -1,14 +1,31 @@
 // Shared by K5 (roi_classifier_head.cu) and K6 (roi_mask_head.cu): the
 // Hopper GEMM tile both heads run. A block owns 128 rows x 256 columns of
-// the output. One producer thread asks TMA for the A tile (128 x 64,
-// K-major) and the B tile (64 x 256 of a row-major (K, N) weight, as four
-// 64 x 64 boxes: wgmma's transposed-B mode reads it as it is) of each K
-// chunk of 64, both 128-byte swizzled, into a 4-stage ring (48 KB a
-// stage). A full barrier per stage counts the TMA bytes; an empty barrier
-// counts the eight consumer warps that are done with it. Two consumer
-// warpgroups each hold a 64 x 256 float32 accumulator fed by wgmma
-// m64n256k16 (descriptors step 32 B per k16 in A, 2 KB in B; LBO 8 KB
-// between B's 64-column atoms, SBO 1 KB between 8-row groups).
+// the output. A producer warpgroup, one thread of which works, asks TMA
+// for the A tile (128 x 64, K-major) and the B tile (64 x 256 of a
+// row-major (K, N) weight, as four 64 x 64 boxes: wgmma's transposed-B
+// mode reads it as it is) of each K chunk of 64, both 128-byte swizzled,
+// into a 4-stage ring (48 KB a stage). A full barrier per stage counts the
+// TMA bytes; an empty barrier counts the eight consumer warps that are
+// done with it. Two consumer warpgroups each hold a 64 x 256 float32 sum
+// `d` (descriptors step 32 B per k16 in A, 2 KB in B; LBO 8 KB between B's
+// 64-column atoms, SBO 1 KB between 8-row groups).
+//
+// Each chunk's product goes, one 128-column half at a time, to a fresh
+// 64 x 128 accumulator `t` (four wgmma m64n128k16, the first with scale-d
+// 0) and joins d in FADDs, which round to nearest, as the plain version's
+// float32 sums do. The tensor core's own accumulation (d += A * B) rounds
+// its result toward zero: over K5's 784 k16 steps (dense 1, 12544 deep)
+// and K6's 144 (each 3x3 conv) into d, that is the error PERF.md
+// measures. Inside t it rounds a 64-deep partial sum, whose ulp is a
+// small part of d's, three times. Adding each k16 step to d on its own
+// instead left d's round-to-nearest chain 4x longer and its error about
+// twice this one's, no smaller than cuBLAS's float32 sums at 200 ROIs
+// (PERF.md). The halves run one after another in a warpgroup (t is read
+// before the next product lands in it); the other consumer warpgroup's
+// products fill the gaps. d and t hold 192 registers a thread: the
+// producer warpgroup gives its registers up (setmaxnreg 24) so that each
+// consumer may hold 240 (with one producer warp, 288 threads of 224
+// registers, ptxas spilled 2.3-2.6 KB a kernel).
 //
 // What differs between the kernels is where each chunk's A tile comes from
 // (a 2-D map over rows, or for K6's 3x3 convs an im2col map over the
@@ -29,7 +46,9 @@ constexpr int kGemmBM = 128;                   // rows per block
 constexpr int kGemmBN = 256;                   // columns per block
 constexpr int kGemmBK = 64;                    // K chunk: one 128-byte atom
 constexpr int kGemmStages = 4;
-constexpr int kGemmThreads = 288;              // 2 consumer WGs + 1 warp
+constexpr int kGemmThreads = 384;              // 2 consumer WGs + producer
+constexpr int kGemmProducerRegs = 24;          // setmaxnreg: 128 x 24 +
+constexpr int kGemmConsumerRegs = 240;         // 256 x 240 = 384 x 168
 constexpr int kGemmABytes = kGemmBM * kGemmBK * 2;   // 16 KB
 constexpr int kGemmBAtom = kGemmBK * 64 * 2;         // 8 KB: 64 K-rows x 64
 constexpr int kGemmBBytes = kGemmBK * kGemmBN * 2;   // 32 KB
@@ -122,14 +141,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// d (64 x 256 float32, this thread's 128) += A (64 x 16, K-major, from
-// shared memory) * B (16 x 256, N-major, from shared memory): the
-// warpgroup's m64n256k16, B transposed (imm-trans-b = 1).
-__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
-                                          uint64_t db) {
+// t (64 x 128 float32, this thread's 64) = A (64 x 16, K-major, from
+// shared memory) * B (16 x 128, N-major, from shared memory) + (acc ? t :
+// 0): the warpgroup's m64n128k16, B transposed (imm-trans-b = 1), scale-d
+// acc.
+__device__ __forceinline__ void wgmma_128(float (&t)[64], uint64_t da,
+                                          uint64_t db, int acc) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
@@ -137,50 +157,39 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
       "%32, %33, %34, %35, %36, %37, %38, %39, "
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+        "+f"(t[0]), "+f"(t[1]), "+f"(t[2]), "+f"(t[3]),
+        "+f"(t[4]), "+f"(t[5]), "+f"(t[6]), "+f"(t[7]),
+        "+f"(t[8]), "+f"(t[9]), "+f"(t[10]), "+f"(t[11]),
+        "+f"(t[12]), "+f"(t[13]), "+f"(t[14]), "+f"(t[15]),
+        "+f"(t[16]), "+f"(t[17]), "+f"(t[18]), "+f"(t[19]),
+        "+f"(t[20]), "+f"(t[21]), "+f"(t[22]), "+f"(t[23]),
+        "+f"(t[24]), "+f"(t[25]), "+f"(t[26]), "+f"(t[27]),
+        "+f"(t[28]), "+f"(t[29]), "+f"(t[30]), "+f"(t[31]),
+        "+f"(t[32]), "+f"(t[33]), "+f"(t[34]), "+f"(t[35]),
+        "+f"(t[36]), "+f"(t[37]), "+f"(t[38]), "+f"(t[39]),
+        "+f"(t[40]), "+f"(t[41]), "+f"(t[42]), "+f"(t[43]),
+        "+f"(t[44]), "+f"(t[45]), "+f"(t[46]), "+f"(t[47]),
+        "+f"(t[48]), "+f"(t[49]), "+f"(t[50]), "+f"(t[51]),
+        "+f"(t[52]), "+f"(t[53]), "+f"(t[54]), "+f"(t[55]),
+        "+f"(t[56]), "+f"(t[57]), "+f"(t[58]), "+f"(t[59]),
+        "+f"(t[60]), "+f"(t[61]), "+f"(t[62]), "+f"(t[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// setmaxnreg: call with every thread of the producer warpgroup (threads
+// 256-383), and of the consumer warpgroups (0-255), before anything else
+// they do after gemm_ring_init.
+__device__ __forceinline__ void gemm_producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+      kGemmProducerRegs));
+}
+
+__device__ __forceinline__ void gemm_consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kGemmConsumerRegs));
 }
 
 // The ring in dynamic shared memory (aligned up to 1024 B for the swizzle).
@@ -232,10 +241,12 @@ __device__ __forceinline__ void gemm_produce(const GemmRing& r, int chunks,
 }
 
 // A consumer warpgroup `wg`: d = rows wg*64 .. wg*64+63 of A @ B over the
-// ring's `chunks` chunks; returns when every product has landed in d.
+// ring's `chunks` chunks, each chunk's product added to d in FADDs;
+// returns when every product has landed in d.
 __device__ __forceinline__ void gemm_consume(const GemmRing& r, int chunks,
                                              int wg, float (&d)[128]) {
   const int lane = threadIdx.x & 31;
+  float t[64];
 #pragma unroll
   for (int i = 0; i < 128; ++i) d[i] = 0.0f;
   for (int j = 0; j < chunks; ++j) {
@@ -243,20 +254,30 @@ __device__ __forceinline__ void gemm_consume(const GemmRing& r, int chunks,
     mbar_wait(r.full0 + 8 * st, (j / kGemmStages) & 1);
     const uint32_t a_st = r.ring + st * kGemmStageBytes + wg * 64 * 128;
     const uint32_t b_st = r.ring + st * kGemmStageBytes + kGemmABytes;
-    wgmma_fence();
+    // a k16 step moves A's start 32 B and B's 2 KB: 2 and 128 in the
+    // descriptors' 16-byte address field
+    const uint64_t da = sw128_desc(a_st, 16, 1024);
 #pragma unroll
-    for (int kk = 0; kk < kGemmBK / 16; ++kk) {
-      wgmma_256(d, sw128_desc(a_st + kk * 32, 16, 1024),
-                sw128_desc(b_st + kk * 2048, kGemmBAtom, 1024));
+    for (int h = 0; h < 2; ++h) {
+      const uint64_t db =
+          sw128_desc(b_st + 2 * h * kGemmBAtom, kGemmBAtom, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kGemmBK / 16; ++kk) {
+        wgmma_128(t, da + 2 * kk, db + 128 * kk, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      // the chunk's sum joins the running one in round-to-nearest adds
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        asm volatile("" : "+f"(t[i])::"memory");
+        d[64 * h + i] += t[i];
+      }
     }
-    wgmma_commit();
-    wgmma_wait<1>();
-    if (j > 0 && lane == 0)
-      mbar_arrive(r.empty0 + 8 * ((j - 1) % kGemmStages));
+    // every product of this stage has landed: the producer may refill it
+    if (lane == 0) mbar_arrive(r.empty0 + 8 * st);
   }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,

@@ -25,7 +25,8 @@
 //    warps per SM to hide their L2 latency.
 //  * head_gemm_kernel: a block owns 128 rows x 256 columns, on the GEMM
 //    tile K6 shares (head_gemm.cuh: TMA into a 4-stage mbarrier ring, one
-//    producer thread, two consumer warpgroups on wgmma m64n256k16).
+//    producer thread, two consumer warpgroups on wgmma m64n128k16, each
+//    64-deep chunk's product added to the float32 sum in FADDs).
 //  * Dense 1 at M = 2000 has 16 x 4 = 64 output tiles; the wrapper splits
 //    its 196 K chunks into groups (ops/roi_align_cuda.py::
 //    classifier_head_plan: 2 at M = 2000, 128 blocks for 132 SMs). Each
@@ -34,7 +35,8 @@
 //    b1, ReLU and the bf16 rounding. Dense 2 and 3 apply their epilogues
 //    (bias, ReLU, bf16; bias only for the float32 output) on the
 //    accumulator registers where they sit.
-//  * One block per SM: 197,696 B of shared memory, 288 threads.
+//  * One block per SM: 197,696 B of shared memory, 384 threads (a
+//    producer warpgroup at 40 registers, two consumers at 232).
 //  * ROIs past M read as zero rows (TMA fills rows out of bounds with 0);
 //    invalid ROIs pool to zero rows. Both still run through the head (as
 //    in the TPU kernel); the outputs have M rounded up to 128 rows and the
@@ -79,6 +81,7 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap tmap_a,
 
   if (threadIdx.x >= 256) {
     // ---- producer: one thread keeps the ring full --------------------------
+    gemm_producer_regs();
     if (threadIdx.x == 256) {
       gemm_produce(
           ring, c_hi - c_lo,
@@ -89,6 +92,7 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap tmap_a,
     }
   } else {
     // ---- consumer warpgroups: rows wg*64 .. wg*64+63 of the tile ----------
+    gemm_consumer_regs();
     const int wg = threadIdx.x / 128;
     const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
     float d[128];

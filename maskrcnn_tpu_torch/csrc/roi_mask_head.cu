@@ -77,6 +77,7 @@ mask_conv_kernel(const __grid_constant__ CUtensorMap tmap_in,
   const int p0 = blockIdx.x * kGemmBM;
 
   if (threadIdx.x >= 256) {
+    gemm_producer_regs();
     if (threadIdx.x == 256) {
       const int n0 = p0 / kPos, y0 = p0 % kPos / kP, x0 = p0 % kP;
       gemm_produce(
@@ -90,6 +91,7 @@ mask_conv_kernel(const __grid_constant__ CUtensorMap tmap_in,
     }
     return;
   }
+  gemm_consumer_regs();
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
   float d[128];
@@ -129,6 +131,7 @@ mask_deconv_kernel(const __grid_constant__ CUtensorMap tmap_in,
   const int ab = blockIdx.y;
 
   if (threadIdx.x >= 256) {
+    gemm_producer_regs();
     if (threadIdx.x == 256) {
       gemm_produce(
           ring, chunks,
@@ -139,6 +142,7 @@ mask_deconv_kernel(const __grid_constant__ CUtensorMap tmap_in,
     }
     return;
   }
+  gemm_consumer_regs();
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
   float d[128];
@@ -159,13 +163,15 @@ mask_deconv_kernel(const __grid_constant__ CUtensorMap tmap_in,
 #pragma unroll
   for (int jn = 0; jn < kC / 8; ++jn) {
     const int ch = jn * 8 + 2 * (lane & 3);
-    const float c0 = __ldg(brow + ch), c1 = __ldg(brow + ch + 1);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float w0 =
-          __bfloat162float(__float2bfloat16_rn(__ldg(wrow[h] + ch)));
-      const float w1 =
-          __bfloat162float(__float2bfloat16_rn(__ldg(wrow[h] + ch + 1)));
+      // float2 loads: with one load a float, the loads the compiler hoists
+      // beside d spilled 16 B (PERF.md)
+      const float2 c = __ldg(reinterpret_cast<const float2*>(brow + ch));
+      const float2 w = __ldg(reinterpret_cast<const float2*>(wrow[h] + ch));
+      const float w0 = __bfloat162float(__float2bfloat16_rn(w.x));
+      const float w1 = __bfloat162float(__float2bfloat16_rn(w.y));
+      const float c0 = c.x, c1 = c.y;
       s[h] += fmaxf(d[4 * jn + 2 * h] + c0, 0.0f) * w0 +
               fmaxf(d[4 * jn + 2 * h + 1] + c1, 0.0f) * w1;
     }

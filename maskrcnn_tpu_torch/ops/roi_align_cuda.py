@@ -237,20 +237,34 @@ def unpack_classifier_head(head_out: torch.Tensor, num_classes: int):
             logits)
 
 
+def _classifier_head_plain(features: Sequence[torch.Tensor],
+                           ys: torch.Tensor, xs: torch.Tensor,
+                           level: torch.Tensor, valid: torch.Tensor,
+                           rois_per_image: int, head: dict,
+                           acc_dtype: torch.dtype = torch.float32):
+    """`classifier_head_plain` -> (h1 (M, N1) in the features' dtype, out)."""
+    pooled = roi_align_plain(features, ys, xs, level, valid, rois_per_image)
+    dt, f = pooled.dtype, acc_dtype
+    h = pooled.reshape(pooled.shape[0], -1).to(f)
+    h1 = torch.relu(h @ head["w1"].to(f) + head["b1"]).to(dt)
+    h = torch.relu(h1.to(f) @ head["w2"].to(f) + head["b2"]).to(dt).to(f)
+    return h1, h @ head["w3"].to(f) + head["b3"]
+
+
 def classifier_head_plain(features: Sequence[torch.Tensor], ys: torch.Tensor,
                           xs: torch.Tensor, level: torch.Tensor,
                           valid: torch.Tensor, rois_per_image: int,
-                          head: dict) -> torch.Tensor:
+                          head: dict,
+                          acc_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
     """(M, HEAD_OUT) float32: h1 = relu(pool @ w1 + b1), h2 = relu(h1 @ w2
     + b2), each rounded to the features' dtype, out = h2 @ w3 + b3;
     products of the rounded values, float32 sums (the TPU kernel's
-    rounding points)."""
-    pooled = roi_align_plain(features, ys, xs, level, valid, rois_per_image)
-    dt, f = pooled.dtype, torch.float32
-    h = pooled.reshape(pooled.shape[0], -1).to(f)
-    h = torch.relu(h @ head["w1"].to(f) + head["b1"]).to(dt).to(f)
-    h = torch.relu(h @ head["w2"].to(f) + head["b2"]).to(dt).to(f)
-    return h @ head["w3"].to(f) + head["b3"]
+    rounding points). `acc_dtype` torch.float64 keeps those roundings and
+    sums in float64 (out in float64): a reference whose only rounding is
+    the scheme's (`tools/kernel_bias.py`)."""
+    return _classifier_head_plain(features, ys, xs, level, valid,
+                                  rois_per_image, head, acc_dtype)[1]
 
 
 # K5's GEMM tiles (`csrc/roi_classifier_head.cu`): 128 rows x 256 columns
@@ -280,10 +294,13 @@ def classifier_head_plan(m: int, k1: int, n1: int, sms: int = 132) -> dict:
             "smem_bytes": HEAD_SMEM}
 
 
-def classifier_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
-                         xs: torch.Tensor, level: torch.Tensor,
-                         valid: torch.Tensor, rois_per_image: int,
-                         head: dict) -> torch.Tensor:
+def _classifier_head_cuda(features: Sequence[torch.Tensor],
+                          ys: torch.Tensor, xs: torch.Tensor,
+                          level: torch.Tensor, valid: torch.Tensor,
+                          rois_per_image: int, head: dict):
+    """The kernel's launch -> (h1, out): its dense-1 scratch (M, N1) bf16
+    beside the (M, HEAD_OUT) float32 rows (`tools/kernel_bias.py` reads
+    the 12544-deep sum there)."""
     args = _pool_args(features, ys, xs, level, valid, rois_per_image,
                       (torch.bfloat16,))
     m, p = ys.shape
@@ -320,7 +337,15 @@ def classifier_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
             h2.data_ptr(), out.data_ptr(), cuda_lib.stream_ptr(ys))
     cuda_lib.check(rc, "roi_classifier_head")
     cuda_lib.launches["roi_classifier_head"] += 1
-    return out[:m]
+    return h1[:m], out[:m]
+
+
+def classifier_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
+                         xs: torch.Tensor, level: torch.Tensor,
+                         valid: torch.Tensor, rois_per_image: int,
+                         head: dict) -> torch.Tensor:
+    return _classifier_head_cuda(features, ys, xs, level, valid,
+                                 rois_per_image, head)[1]
 
 
 HEAD_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
@@ -391,32 +416,47 @@ def pack_mask_head(params: dict, dtype: torch.dtype = torch.bfloat16) -> dict:
             "bcls": km["bias"].float()}
 
 
-def mask_head_plain(features: Sequence[torch.Tensor], ys: torch.Tensor,
-                    xs: torch.Tensor, level: torch.Tensor,
-                    valid: torch.Tensor, rois_per_image: int, mask: dict,
-                    class_ids: torch.Tensor) -> torch.Tensor:
-    """(M, 2P, 2P) float32 sigmoid masks of each ROI's class: four times
-    a = relu(conv3x3_SAME(a) @ W + b) rounded to the features' dtype, then
-    z = relu(a @ wdec + bdec) in float32, logit = z . kcls[class] (the class
-    row rounded to the features' dtype) + bcls[class], and
-    mask[2y + a, 2x + b] = sigmoid(logit of parity 2a + b at (y, x))."""
+def _mask_head_plain(features: Sequence[torch.Tensor], ys: torch.Tensor,
+                     xs: torch.Tensor, level: torch.Tensor,
+                     valid: torch.Tensor, rois_per_image: int, mask: dict,
+                     class_ids: torch.Tensor,
+                     acc_dtype: torch.dtype = torch.float32):
+    """`mask_head_plain` -> (the four conv outputs (M, P, P, C) in the
+    features' dtype, the masks)."""
     pooled = roi_align_plain(features, ys, xs, level, valid, rois_per_image)
     m, p, _, c = pooled.shape
-    dt, f = pooled.dtype, torch.float32
-    x = pooled.to(f)
+    dt, f = pooled.dtype, acc_dtype
+    x, acts = pooled.to(f), []
     for k in range(4):
         xp = F.pad(x, (0, 0, 1, 1, 1, 1))
         patches = torch.cat([xp[:, dy:dy + p, dx:dx + p]
                              for dy in range(3) for dx in range(3)], dim=-1)
-        x = torch.relu(patches @ mask["wconv"][k].to(f)
-                       + mask["bconv"][k]).to(dt).to(f)
+        acts.append(torch.relu(patches @ mask["wconv"][k].to(f)
+                               + mask["bconv"][k]).to(dt))
+        x = acts[-1].to(f)
     z = torch.relu(x @ mask["wdec"].to(f) + mask["bdec"])
     ids = class_ids.to(torch.int64)
     w = mask["kcls"][ids].to(dt).to(f)
     logits = torch.einsum("myxqc,mc->myxq", z.reshape(m, p, p, 4, c), w)
     sig = torch.sigmoid(logits + mask["bcls"][ids][:, None, None, None])
-    return sig.reshape(m, p, p, 2, 2).permute(0, 1, 3, 2, 4).reshape(
+    return acts, sig.reshape(m, p, p, 2, 2).permute(0, 1, 3, 2, 4).reshape(
         m, 2 * p, 2 * p)
+
+
+def mask_head_plain(features: Sequence[torch.Tensor], ys: torch.Tensor,
+                    xs: torch.Tensor, level: torch.Tensor,
+                    valid: torch.Tensor, rois_per_image: int, mask: dict,
+                    class_ids: torch.Tensor,
+                    acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(M, 2P, 2P) float32 sigmoid masks of each ROI's class: four times
+    a = relu(conv3x3_SAME(a) @ W + b) rounded to the features' dtype, then
+    z = relu(a @ wdec + bdec) in float32, logit = z . kcls[class] (the class
+    row rounded to the features' dtype) + bcls[class], and
+    mask[2y + a, 2x + b] = sigmoid(logit of parity 2a + b at (y, x)).
+    `acc_dtype` torch.float64 keeps the roundings to the features' dtype
+    and computes the rest in float64 (masks in float64)."""
+    return _mask_head_plain(features, ys, xs, level, valid, rois_per_image,
+                            mask, class_ids, acc_dtype)[1]
 
 
 def mask_head_plan(m: int) -> dict:
@@ -441,10 +481,13 @@ def mask_head_plan(m: int) -> dict:
             "smem_bytes": HEAD_SMEM}
 
 
-def mask_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
-                   xs: torch.Tensor, level: torch.Tensor,
-                   valid: torch.Tensor, rois_per_image: int, mask: dict,
-                   class_ids: torch.Tensor) -> torch.Tensor:
+def _mask_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
+                    xs: torch.Tensor, level: torch.Tensor,
+                    valid: torch.Tensor, rois_per_image: int, mask: dict,
+                    class_ids: torch.Tensor):
+    """The kernel's launch -> ((conv 3, conv 4) outputs, masks): the two
+    activation buffers beside the (M, 2P, 2P) masks (the pool and conv 1-2
+    are overwritten by then; `tools/kernel_bias.py` reads them)."""
     args = _pool_args(features, ys, xs, level, valid, rois_per_image,
                       (torch.bfloat16,))
     m, p = ys.shape
@@ -478,7 +521,16 @@ def mask_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
             out.data_ptr(), cuda_lib.stream_ptr(ys))
     cuda_lib.check(rc, "roi_mask_head")
     cuda_lib.launches["roi_mask_head"] += 1
-    return out
+    # the pool lands in act[0], conv k (1-4) in act[k % 2]
+    return (act[1], act[0]), out
+
+
+def mask_head_cuda(features: Sequence[torch.Tensor], ys: torch.Tensor,
+                   xs: torch.Tensor, level: torch.Tensor,
+                   valid: torch.Tensor, rois_per_image: int, mask: dict,
+                   class_ids: torch.Tensor) -> torch.Tensor:
+    return _mask_head_cuda(features, ys, xs, level, valid, rois_per_image,
+                           mask, class_ids)[1]
 
 
 MASK_KEYS = ("wconv", "bconv", "wdec", "bdec", "kcls", "bcls")

@@ -1,6 +1,6 @@
-"""Do K3 and K4 lean away from their plain versions? An elementwise audit
-at a trained checkpoint's weights, on the activations its production
-forward hands the kernels.
+"""Do K3-K6 lean away from their plain versions? An elementwise audit at a
+trained checkpoint's weights, on the activations its forward hands the
+kernels.
 
     python3 -m maskrcnn_tpu_torch.tools.kernel_bias --root DIR \\
         [--images 64] [--batch 8] [--out FILE] [--device cpu]
@@ -11,8 +11,12 @@ tool runs the production forward (`MaskRCNNDetector.run_batch`) over the
 first `--images` val images, in id order as `cli evaluate` takes them, in
 batches of `--batch` (the proof's evaluate batch), and records what the
 forward hands K3 (`stem_cuda.stem`) and each K4 chain
-(`bottleneck_cuda.fused_bottleneck_chain`). Each recorded input then goes
-through three versions of the same function:
+(`bottleneck_cuda.fused_bottleneck_chain`). A second forward over the same
+batches, the production config with both fused heads on
+(`proof_numerics.fused_heads`), records what it hands K5 and K6 (the names
+`roi_classifier_head` and `roi_mask_head` in `ops/roi_align.py`, which
+that module imports from `ops/roi_align_cuda.py`). Each recorded input
+then goes through three versions of the same function:
 
   kernel  the op: the CUDA kernel on the card (on the CPU its plain
           version, so every reading there is 0: a run of the tool's path)
@@ -21,13 +25,21 @@ through three versions of the same function:
           with PyTorch's default, TF32 on in cuDNN: K3's conv then sums on
           the tensor cores)
   f64     the plain version with float64 sums and the same bf16 roundings
-          (images and output; for K4 x, t1, t2 and the output): the
-          scheme's own rounding and no other
+          (images and output; for K4 x, t1, t2 and the output; for K5 the
+          pool, h1 and h2; for K6 the pool, each conv's output and the
+          class row): the scheme's own rounding and no other
 
 Rows: K3, and each of K4's six blocks (res2 a, b, c; res3 b, c, d) alone,
 each fed the plain chain's output of the block before, so that a row
 holds that block's own error and nothing that earlier blocks carry on.
-Each row gives, over every element of the real images of each batch, for
+K5: its logits (lanes [0, nc)) and box deltas (lanes [128, 128 + 4 nc))
+and, to say where an error starts, h1 (`K5_dense1`: the 12544-deep sum,
+bf16, read from the kernel's scratch); K6: its masks and the outputs of
+its third and fourth 3x3 convs (`K6_conv3`, `K6_conv4`, the kernel's two
+activation buffers). These rows carry what the head's earlier layers
+pass on, in each version alike. K5 and K6 rows count the valid ROIs and
+detections of the real images only (padded rows pool to zero). Each row
+gives, over every element of the real images of each batch, for
 the kernel and for the plain version against f64 the mean signed error
 with its standard error, the mean and the max |error| and the shares of
 elements above and below; and for kernel - plain the mean signed
@@ -51,7 +63,8 @@ version when in every row both hold:
 
 On the CPU the gates of `models/resnet.py`, which ask for a CUDA tensor,
 are opened for the run, so the recording sees the production forward's
-calls there too. Prints one JSON object last; exits 0 whatever the
+calls there too (the fused heads need no gate: on the CPU their op is the
+plain version). Prints one JSON object last; exits 0 whatever the
 verdict (the report's `unbiased`).
 """
 
@@ -96,6 +109,8 @@ def ulp_unit(kernel, plain, ref):
 
 
 def _moments(n, s) -> dict:
+    """(A row that saw no elements reads 0 throughout.)"""
+    n = max(n, 1)
     mean = s["sum"] / n
     var = max(s["sq"] / n - mean * mean, 0.0)
     return {"mean_ulp": mean, "se_ulp": math.sqrt(var / max(n - 1, 1)),
@@ -118,10 +133,12 @@ class BiasStats:
 
     def add(self, kernel, plain, ref) -> None:
         """Three outputs of one input: the kernel's, the float32 plain
-        version's and the float64 one's."""
+        version's and the float64 one's (no elements: nothing added)."""
         if not (kernel.shape == plain.shape == ref.shape):
             raise ValueError(f"shapes differ: {tuple(kernel.shape)}, "
                              f"{tuple(plain.shape)}, {tuple(ref.shape)}")
+        if kernel.numel() == 0:
+            return
         for k, p, r in zip(*(t.reshape(-1).split(CHUNK)
                              for t in (kernel, plain, ref))):
             k, p, r = k.double(), p.double(), r.double()
@@ -144,8 +161,9 @@ class BiasStats:
         out = {"elements": n}
         for side in self.SIDES:
             s = self.sums[side, "rule"]
-            out[side] = {**_moments(n, s), "share_up": s["up"] / n,
-                         "share_down": s["down"] / n,
+            out[side] = {**_moments(n, s),
+                         "share_up": s["up"] / max(n, 1),
+                         "share_down": s["down"] / max(n, 1),
                          "f64_ulp": _moments(n, self.sums[side, "f64_ulp"])}
         kp = out["kernel_minus_plain"]
         kp["share_differ"] = kp["share_up"] + kp["share_down"]
@@ -221,6 +239,65 @@ def audit_chain(stats: list[BiasStats], x, blocks) -> None:
         x = plain
 
 
+HEAD_REPLACES = "maskrcnn_tpu/ops/roi_align_pallas.py:716"
+K5_ROWS = ("K5_dense1", "K5_logits", "K5_deltas")
+K6_ROWS = ("K6_conv3", "K6_conv4", "K6_masks")
+HEAD_SOURCES = {"K5": "maskrcnn_tpu_torch/csrc/roi_classifier_head.cu",
+                "K6": "maskrcnn_tpu_torch/csrc/roi_mask_head.cu"}
+
+
+def head_stats() -> dict:
+    return {name: BiasStats() for name in K5_ROWS + K6_ROWS}
+
+
+def audit_classifier_head(stats: dict, features, ys, xs, level, valid,
+                          rois_per_image, head, num_classes, keep) -> None:
+    """K5's rows over the ROIs `keep` ((M,) bool): the kernel (its h1
+    scratch and its rows), the float32 and the float64 plain version."""
+    from maskrcnn_tpu_torch.ops import roi_align_cuda as rac
+
+    args = ([f.contiguous() for f in features], ys, xs, level, valid,
+            int(rois_per_image), head)
+    kernel = (rac._classifier_head_cuda(*args) if ys.is_cuda
+              else rac._classifier_head_plain(*args))
+    plain = rac._classifier_head_plain(*args)
+    ref = rac._classifier_head_plain(*args, torch.float64)
+    h1, out = zip(kernel, plain, ref)
+    stats["K5_dense1"].add(*(t[keep] for t in h1))
+    out = [t[keep] for t in out]
+    for name, lanes in (("K5_logits", slice(0, num_classes)),
+                        ("K5_deltas", slice(128, 128 + 4 * num_classes))):
+        stats[name].add(*(t[:, lanes] for t in out))
+
+
+def audit_mask_head(stats: dict, features, ys, xs, level, valid,
+                    rois_per_image, mask, class_ids, keep) -> None:
+    """K6's rows over the detections `keep` ((M,) bool): the kernel (its
+    conv 3 and conv 4 buffers and its masks), the float32 and the float64
+    plain version."""
+    from maskrcnn_tpu_torch.ops import roi_align_cuda as rac
+
+    args = ([f.contiguous() for f in features], ys, xs, level, valid,
+            int(rois_per_image), mask, class_ids)
+
+    def plain(acc):
+        acts, masks = rac._mask_head_plain(*args, acc)
+        return acts[2:], masks
+
+    outs = [rac._mask_head_cuda(*args) if ys.is_cuda else plain(torch.float32),
+            plain(torch.float32), plain(torch.float64)]
+    for i, name in enumerate(("K6_conv3", "K6_conv4")):
+        stats[name].add(*(acts[i][keep] for acts, _ in outs))
+    stats["K6_masks"].add(*(masks[keep] for _, masks in outs))
+
+
+def head_rows(n, rois_per_image, valid):
+    """(M,) bool: the valid ROIs (or detections) of the batch's first `n`
+    images."""
+    return valid & (torch.arange(valid.numel(), device=valid.device)
+                    < n * rois_per_image)
+
+
 # ---------------------------------------------------------------------------
 # recording the production forward's calls
 # ---------------------------------------------------------------------------
@@ -249,14 +326,18 @@ def _chain_gate_any_device(params, stage, letters, x, dtype):
 
 @contextlib.contextmanager
 def recording(calls: dict, any_device: bool):
-    """K3's and K4's ops wrapped to append their inputs to
-    `calls["stem"]` / `calls["chain"]`; with `any_device`, the gates
-    opened on the CPU too."""
+    """K3's, K4's, K5's and K6's ops wrapped to append their inputs to
+    `calls["stem"]` / `calls["chain"]` / `calls["classifier_head"]` /
+    `calls["mask_head"]` (the last two made at their first call); with
+    `any_device`, K3's and K4's gates opened on the CPU too."""
     from maskrcnn_tpu_torch.models import resnet
-    from maskrcnn_tpu_torch.ops import bottleneck_cuda as bc, stem_cuda
+    from maskrcnn_tpu_torch.ops import bottleneck_cuda as bc, roi_align
+    from maskrcnn_tpu_torch.ops import stem_cuda
     from maskrcnn_tpu_torch.tools.proof_numerics import _patched
 
     stem, chain = stem_cuda.stem, bc.fused_bottleneck_chain
+    cls_head, mask_head = roi_align.roi_classifier_head, \
+        roi_align.roi_mask_head
 
     def rec_stem(images, w, bias):
         calls["stem"].append((images, w, bias))
@@ -266,8 +347,19 @@ def recording(calls: dict, any_device: bool):
         calls["chain"].append((x, blocks))
         return chain(x, blocks)
 
+    def rec_cls(*args):
+        calls.setdefault("classifier_head", []).append(args)
+        return cls_head(*args)
+
+    def rec_mask(*args):
+        calls.setdefault("mask_head", []).append(args)
+        return mask_head(*args)
+
+    # ops/roi_align.py calls the heads by the names it imported
     subs = [(stem_cuda, "stem", rec_stem),
-            (bc, "fused_bottleneck_chain", rec_chain)]
+            (bc, "fused_bottleneck_chain", rec_chain),
+            (roi_align, "roi_classifier_head", rec_cls),
+            (roi_align, "roi_mask_head", rec_mask)]
     if any_device:
         subs += [(stem_cuda, "stem_supported", _stem_gate_any_device),
                  (resnet, "_kernel_chain", _chain_gate_any_device)]
@@ -298,25 +390,38 @@ def val_batches(root, size, n_images, batch):
         yield np.stack(chunk), n
 
 
+def _forward_calls(detector, canvases, any_device, want: dict) -> dict:
+    """The calls one forward made, checked against `want` ({key: count})."""
+    calls = {"stem": [], "chain": [], "classifier_head": [], "mask_head": []}
+    with recording(calls, any_device):
+        detector.run_batch(torch.from_numpy(canvases))
+    made = {k: len(v) for k, v in calls.items()}
+    if made != want:
+        raise RuntimeError(f"the forward made {made} kernel calls (expected "
+                           f"{want}): not the path the audit reads")
+    return calls
+
+
 def run_audit(detector, batches) -> list[dict]:
     """The rows of `decide`d `BiasStats` over `batches` ((canvases, real
-    count) pairs) through `detector`'s production forward (PyTorch's TF32
-    settings as they are), each audited with TF32 off."""
+    count) pairs): K3/K4 through `detector`'s production forward, K5/K6
+    through the same weights' fused-head forward (PyTorch's TF32 settings
+    as they are), each audited with TF32 off."""
+    from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
     from maskrcnn_tpu_torch.tools.flagship_proof import NoTF32
+    from maskrcnn_tpu_torch.tools.proof_numerics import fused_heads
 
+    fused = MaskRCNNDetector(fused_heads(detector.config), detector.params,
+                             device=detector.device)
+    nc = detector.config.num_classes
     stem_stats = BiasStats()
     chain_keys = chain_rows()
     chain_stats = [BiasStats() for _ in chain_keys]
+    heads = head_stats()
     any_device = detector.device.type != "cuda"
     for canvases, n in batches:
-        calls = {"stem": [], "chain": []}
-        with recording(calls, any_device):
-            detector.run_batch(torch.from_numpy(canvases))
-        if len(calls["stem"]) != 1 or len(calls["chain"]) != 2:
-            raise RuntimeError(
-                f"the forward made {len(calls['stem'])} K3 and "
-                f"{len(calls['chain'])} K4 calls (expected 1 and 2): not "
-                f"the production path")
+        calls = _forward_calls(detector, canvases, any_device, {
+            "stem": 1, "chain": 2, "classifier_head": 0, "mask_head": 0})
         with torch.no_grad(), NoTF32():
             images, w, bias = calls["stem"][0]
             audit_stem(stem_stats, images[:n], w, bias)
@@ -325,11 +430,22 @@ def run_audit(detector, batches) -> list[dict]:
                 audit_chain(chain_stats[i:i + len(blocks)], x[:n], blocks)
                 i += len(blocks)
         del calls
+        calls = _forward_calls(fused, canvases, any_device, {
+            "stem": 1, "chain": 2, "classifier_head": 1, "mask_head": 1})
+        with torch.no_grad(), NoTF32():
+            args = calls["classifier_head"][0]
+            audit_classifier_head(heads, *args, nc,
+                                  head_rows(n, args[5], args[4]))
+            args = calls["mask_head"][0]
+            audit_mask_head(heads, *args, head_rows(n, args[5], args[4]))
+        del calls, args
     rows = []
     for (name, source, replaces), st in (
             [(STEM_ROW, stem_stats)]
             + [((f"K4_res{stage}{letter}", *CHAIN_SOURCE), st)
-               for (stage, letter), st in zip(chain_keys, chain_stats)]):
+               for (stage, letter), st in zip(chain_keys, chain_stats)]
+            + [((name, HEAD_SOURCES[name[:2]], HEAD_REPLACES), st)
+               for name, st in heads.items()]):
         rows.append({"name": name, "source": source, "replaces": replaces,
                      **decided(st)})
     return rows

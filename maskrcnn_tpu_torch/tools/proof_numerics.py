@@ -21,6 +21,12 @@ evaluate batch of 8:
   bf16_table_anchors production with the anchor table (the exact run's)
   exact_fp32         float32, exact top-k, table anchors, TF32 off
   exact_tf32         the same with TF32 on (PyTorch's cuDNN default)
+  production_fused_heads  production with both fused heads on
+                     (`fuse_classifier_head`, `fuse_mask_head`): K5 and
+                     K6 on the card
+  production_plain_heads  the same config with K5's and K6's plain
+                     versions in their place (the names `roi_align` calls
+                     them by): sets the kernels apart from the folding
 
 Each is scored over the first 64 val images (the proof's own val set at
 its defaults: a dataset redrawn with more val images keeps those first)
@@ -41,7 +47,8 @@ import time
 from maskrcnn_tpu_torch.tools import flagship_proof as fp
 
 VARIANTS = ("production", "production_layers", "production_plain_k3k4",
-            "bf16_table_anchors", "exact_fp32", "exact_tf32")
+            "bf16_table_anchors", "exact_fp32", "exact_tf32",
+            "production_fused_heads", "production_plain_heads")
 PROOF_VAL_IMAGES = 64   # flagship_proof.py's default --val-images
 EVAL_BATCH = 8          # and its default --eval-batch
 
@@ -59,10 +66,16 @@ def _patched(*subs):
             setattr(mod, name, value)
 
 
+def fused_heads(cfg):
+    """`cfg` with both ROI heads fused behind their pools (K5, K6)."""
+    return cfg.replace(fuse_classifier_head=True, fuse_mask_head=True)
+
+
 def _variant(name, base):
     """(config, context, TF32 off) of a variant over the production
     config."""
-    from maskrcnn_tpu_torch.ops import bottleneck_cuda as k4, stem_cuda as k3
+    from maskrcnn_tpu_torch.ops import bottleneck_cuda as k4, roi_align
+    from maskrcnn_tpu_torch.ops import roi_align_cuda as rac, stem_cuda as k3
 
     exact = fp.exact_config(base)
     plain = contextlib.nullcontext
@@ -71,13 +84,19 @@ def _variant(name, base):
     plain_k3k4 = _patched(
         (k3, "stem", lambda im, w, b: k3.stem_plain(im.contiguous(), w, b)),
         (k4, "fused_bottleneck_chain", k4.chain_plain))
+    plain_heads = _patched(
+        (roi_align, "roi_classifier_head", rac.classifier_head_plain),
+        (roi_align, "roi_mask_head", rac.mask_head_plain))
     return {"production": (base, plain(), False),
             "production_layers": (base, no_k3k4, False),
             "production_plain_k3k4": (base, plain_k3k4, False),
             "bf16_table_anchors": (base.replace(analytic_anchors=False),
                                    plain(), False),
             "exact_fp32": (exact, plain(), True),
-            "exact_tf32": (exact, plain(), False)}[name]
+            "exact_tf32": (exact, plain(), False),
+            "production_fused_heads": (fused_heads(base), plain(), False),
+            "production_plain_heads": (fused_heads(base), plain_heads,
+                                       False)}[name]
 
 
 def _proof_seed(root):

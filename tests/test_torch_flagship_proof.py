@@ -196,14 +196,16 @@ def test_tool_needs_a_card_unless_asked(tmp_path, monkeypatch):
 
 def test_proof_numerics_scores_each_variant(tiny_run):
     """`tools/proof_numerics.py` over the tiny run's checkpoint: each of
-    the six variants scored over the proof's first 64 val images and
+    the eight variants scored over the proof's first 64 val images and
     over every val image of the root (the one there is), with its deltas against exact float32; the
-    kernel gates, the kernel entry points and the TF32 switches it sets
+    kernel gates, the kernel entry points (K5's and K6's by the names
+    `ops/roi_align.py` calls them by) and the TF32 switches it sets
     come back as they were."""
-    from maskrcnn_tpu_torch.ops import bottleneck_cuda, stem_cuda
+    from maskrcnn_tpu_torch.ops import bottleneck_cuda, roi_align, stem_cuda
     from maskrcnn_tpu_torch.tools import proof_numerics
 
     root, proof = tiny_run
+    heads = (roi_align.roi_classifier_head, roi_align.roi_mask_head)
     gates = (stem_cuda.stem_supported, bottleneck_cuda.chain_supported,
              stem_cuda.stem, bottleneck_cuda.fused_bottleneck_chain)
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -213,6 +215,7 @@ def test_proof_numerics_scores_each_variant(tiny_run):
         "--root", str(root), "--out", str(out), "--device", "cpu"]) == 0
     assert (stem_cuda.stem_supported, bottleneck_cuda.chain_supported,
             stem_cuda.stem, bottleneck_cuda.fused_bottleneck_chain) == gates
+    assert (roi_align.roi_classifier_head, roi_align.roi_mask_head) == heads
     assert (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32) == tf32
     with open(out) as f:

@@ -437,6 +437,41 @@ def test_gpu_mask_head_kernel_runs_its_plan(monkeypatch, key, delta):
                                rtol=0, atol=1e-2)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", ["classifier", "mask"])
+def test_gpu_fused_head_unbiased_against_float64(head):
+    """K5 (its h1, logits and deltas) and K6 (its conv 3 and conv 4
+    outputs and masks) against their float32 and float64 plain versions
+    under the rule of `tools/kernel_bias.py`, TF32 off, over four inputs of
+    2 x 100 ROIs (K6: 2 x 50), valid ROIs only. The tensor cores' own
+    accumulation (d += A * B, rounded toward zero) failed it: mean |error|
+    3.4-6.9x the plain version's (PERF.md)."""
+    from maskrcnn_tpu_torch.tools import kernel_bias as kb
+    from maskrcnn_tpu_torch.tools.flagship_proof import NoTF32
+
+    dev = _card()
+    stats = kb.head_stats()
+    with NoTF32():
+        for seed in range(4):
+            if head == "classifier":
+                feats, prep, n, packed, _ = _head_case(
+                    seed, n=100, dtype=torch.bfloat16)
+            else:
+                feats, prep, n, packed, ids = _head_case(
+                    seed, n=50, crop=14, dtype=torch.bfloat16)
+            args = ([f.to(dev) for f in feats], *[t.to(dev) for t in prep],
+                    n, {k: v.to(dev) for k, v in packed.items()})
+            keep = kb.head_rows(2, n, args[4])
+            if head == "classifier":
+                kb.audit_classifier_head(stats, *args, 81, keep)
+            else:
+                kb.audit_mask_head(stats, *args, ids.to(dev), keep)
+    for name in kb.K5_ROWS if head == "classifier" else kb.K6_ROWS:
+        row = kb.decided(stats[name])
+        assert row["elements"] > 0, name
+        assert row["rule"]["unbiased"], (name, row["rule"])
+
+
 # --------------------------------------------------------------------------
 # K2, K3, K4 under autograd (training), and a full-width training step
 # --------------------------------------------------------------------------

@@ -154,6 +154,45 @@ def test_mask_head_matches_pallas_kernel():
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
 
 
+@pytest.mark.parametrize("head", ["classifier", "mask"])
+def test_head_plain_sums_in_float32_by_default(head):
+    """What the two Pallas tests above hold against the TPU kernel is the
+    plain version with float32 sums: the default of its `acc_dtype`, bit
+    for bit. Float64 sums (`tools/kernel_bias.py`'s reference) land within
+    those tests' tolerances of it."""
+    rng = np.random.default_rng(2 if head == "classifier" else 3)
+    feats, rois = _inputs(rng)
+    t_feats = [torch.from_numpy(f) for f in feats]
+    crop = 7 if head == "classifier" else 14
+    prep = pt_ra.prepare(torch.from_numpy(rois.reshape(-1, 4)),
+                         [(f.shape[1], f.shape[2]) for f in t_feats],
+                         IMAGE_SHAPE, CANONICAL, crop)
+    if head == "classifier":
+        packed = pt_rac.pack_classifier_head(
+            params_from_numpy(classifier_params(rng)), CLS_CLASSES,
+            dtype=torch.float32)
+        via_op = pt_ra.pyramid_roi_align(t_feats, torch.from_numpy(rois), 7,
+                                         IMAGE_SHAPE, CANONICAL,
+                                         head_params=packed)
+        fn, args = pt_rac.classifier_head_plain, (t_feats, *prep, 24, packed)
+    else:
+        packed = pt_rac.pack_mask_head(params_from_numpy(mask_params(rng)),
+                                       dtype=torch.float32)
+        ids = torch.from_numpy(rng.integers(0, MASK_CLASSES, (2, 24))
+                               .astype(np.int32))
+        via_op = pt_ra.pyramid_roi_align(t_feats, torch.from_numpy(rois), 14,
+                                         IMAGE_SHAPE, CANONICAL,
+                                         mask_params=packed, class_ids=ids)
+        fn, args = pt_rac.mask_head_plain, (t_feats, *prep, 24, packed,
+                                            ids.reshape(-1))
+    assert torch.equal(fn(*args), via_op)
+    assert torch.equal(fn(*args, acc_dtype=torch.float32), via_op)
+    f64 = fn(*args, acc_dtype=torch.float64)
+    assert f64.dtype == torch.float64 and f64.shape == via_op.shape
+    np.testing.assert_allclose(via_op.numpy(), f64.numpy(), rtol=2e-4,
+                               atol=2e-5)
+
+
 def test_bf16_pool_within_one_rounding_of_pallas_kernel():
     """At bf16 the TPU kernel rounds its y-blended rows and its x weights
     to bf16 before the x contraction; the port (K2, and the pool inside
