@@ -40,6 +40,7 @@ from maskrcnn_tpu_torch.ops.roi_align_cuda import (pack_classifier_head,
                                                    pack_mask_head,
                                                    unpack_classifier_head)
 from maskrcnn_tpu_torch.pipeline.paste import paste_masks
+from maskrcnn_tpu_torch.utils.profiling import stage
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -129,6 +130,12 @@ def forward(params, images, config: MaskRCNNConfig,
     real dtype) -> detections + masks, computed on `device` (default: the
     card; raises where there is none). `paste_size` also pastes
     full-resolution uint8 masks on the device (`out["pasted"]`)."""
+    with stage("forward"):
+        return _forward(params, images, config, with_features, device,
+                        paste_size)
+
+
+def _forward(params, images, config, with_features, device, paste_size):
     dev = resolve_device(device)
     dtype = compute_dtype(config)
     fuse_cls = config.fuse_classifier_head
@@ -144,69 +151,84 @@ def forward(params, images, config: MaskRCNNConfig,
     b = images.shape[0]
     image_hw = (config.image_height, config.image_width)
 
-    x = preprocess(images, config)
-    pyramid = backbone_fpn(params, x, config, dtype)
-    rpn_logits, rpn_deltas = rpn.apply_rpn(params, pyramid, dtype=dtype)
+    with stage("preprocess"):
+        x = preprocess(images, config)
+    with stage("backbone_fpn"):
+        pyramid = backbone_fpn(params, x, config, dtype)
+    with stage("rpn"):
+        rpn_logits, rpn_deltas = rpn.apply_rpn(params, pyramid, dtype=dtype)
     fg_scores = rpn_logits[..., 1] - rpn_logits[..., 0]            # (B, A)
 
-    # The anchor table is only read when anchors are not computed from the
-    # top-k indices (`analytic_anchors=False`).
-    anchors = (None if config.analytic_anchors else
-               torch.from_numpy(generate_anchors(config)).to(dev))
-    rois, roi_valid = generate_proposals(
-        fg_scores, rpn_deltas, anchors,
-        bbox_std_dev=config.bbox_std_dev,
-        pre_nms_max_proposals=config.pre_nms_max_proposals,
-        max_proposals=config.max_proposals,
-        nms_threshold=config.proposal_nms_threshold,
-        anchor_spec=anchor_spec(config) if config.analytic_anchors else None)
+    with stage("proposals"):
+        # The anchor table is only read when anchors are not computed from
+        # the top-k indices (`analytic_anchors=False`).
+        anchors = (None if config.analytic_anchors else
+                   torch.from_numpy(generate_anchors(config)).to(dev))
+        rois, roi_valid = generate_proposals(
+            fg_scores, rpn_deltas, anchors,
+            bbox_std_dev=config.bbox_std_dev,
+            pre_nms_max_proposals=config.pre_nms_max_proposals,
+            max_proposals=config.max_proposals,
+            nms_threshold=config.proposal_nms_threshold,
+            anchor_spec=(anchor_spec(config) if config.analytic_anchors
+                         else None))
 
     r = config.max_proposals
     levels = list(pyramid[:4])
     align = dict(image_shape=image_hw,
                  canonical_scale=config.roi_canonical_scale)
     if fuse_cls:
-        head_out = pyramid_roi_align(
-            levels, rois, config.pool_size, **align,
-            head_params=pack_classifier_head(params, config.num_classes,
-                                             dtype))
-        probs, deltas, _ = unpack_classifier_head(head_out,
-                                                  config.num_classes)
+        with stage("roi_align_classifier"):
+            head_out = pyramid_roi_align(
+                levels, rois, config.pool_size, **align,
+                head_params=pack_classifier_head(params, config.num_classes,
+                                                 dtype))
+            probs, deltas, _ = unpack_classifier_head(head_out,
+                                                      config.num_classes)
     else:
-        pooled = pyramid_roi_align(levels, rois, config.pool_size, **align)
-        probs, deltas = heads.apply_classifier_head(
-            params, pooled.reshape((b * r,) + pooled.shape[2:]),
-            config.num_classes, dtype=dtype)
+        with stage("roi_align_classifier"):
+            pooled = pyramid_roi_align(levels, rois, config.pool_size,
+                                       **align)
+        with stage("classifier_head"):
+            probs, deltas = heads.apply_classifier_head(
+                params, pooled.reshape((b * r,) + pooled.shape[2:]),
+                config.num_classes, dtype=dtype)
     probs = probs.reshape(b, r, -1)
     deltas = deltas.reshape(b, r, config.num_classes, 4)
 
-    detections, det_valid, _ = refine_detections(
-        rois, probs, deltas, bbox_std_dev=config.bbox_std_dev,
-        score_threshold=config.detection_score_threshold,
-        nms_threshold=config.detection_nms_threshold,
-        max_detections=config.max_detections)
+    with stage("detection"):
+        detections, det_valid, _ = refine_detections(
+            rois, probs, deltas, bbox_std_dev=config.bbox_std_dev,
+            score_threshold=config.detection_score_threshold,
+            nms_threshold=config.detection_nms_threshold,
+            max_detections=config.max_detections)
 
     d = config.max_detections
     det_boxes = detections[..., :4]
     class_ids = detections[..., 4].to(torch.int64)
     if fuse_mask:
-        masks = pyramid_roi_align(levels, det_boxes, config.mask_pool_size,
-                                  **align,
-                                  mask_params=pack_mask_head(params, dtype),
-                                  class_ids=class_ids)
+        with stage("roi_align_mask_fused"):
+            masks = pyramid_roi_align(
+                levels, det_boxes, config.mask_pool_size, **align,
+                mask_params=pack_mask_head(params, dtype),
+                class_ids=class_ids)
     else:
-        mask_pooled = pyramid_roi_align(levels, det_boxes,
-                                        config.mask_pool_size, **align)
-        masks = heads.apply_mask_head(
-            params, mask_pooled.reshape((b * d,) + mask_pooled.shape[2:]),
-            dtype=dtype, class_ids=class_ids.reshape(b * d))
+        with stage("roi_align_mask"):
+            mask_pooled = pyramid_roi_align(levels, det_boxes,
+                                            config.mask_pool_size, **align)
+        with stage("mask_head"):
+            masks = heads.apply_mask_head(
+                params, mask_pooled.reshape((b * d,) + mask_pooled.shape[2:]),
+                dtype=dtype, class_ids=class_ids.reshape(b * d))
     masks = masks.reshape(b, d, config.mask_size, config.mask_size)
     masks = masks * det_valid[:, :, None, None].to(masks.dtype)
 
     out = {"detections": detections, "masks": masks, "valid": det_valid,
            "rois": rois, "roi_valid": roi_valid}
     if paste_size is not None:
-        out["pasted"] = paste_masks(masks, det_boxes, det_valid, paste_size)
+        with stage("paste"):
+            out["pasted"] = paste_masks(masks, det_boxes, det_valid,
+                                        paste_size)
     if with_features:
         out.update(rpn_logits=rpn_logits, rpn_deltas=rpn_deltas,
                    pyramid=pyramid)

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from maskrcnn_tpu_torch.utils.profiling import stage
+
 
 def make_mesh(n_devices: int | None = None,
               device_type: str = "cuda") -> list[torch.device]:
@@ -60,7 +62,8 @@ def shard_batch(devices, images) -> list[torch.Tensor]:
     if images.shape[0] % n:
         raise ValueError(f"batch of {images.shape[0]} does not split over "
                          f"{n} devices")
-    return [x.to(d) for x, d in zip(images.chunk(n), devices)]
+    with stage("mesh.copy_in"):
+        return [x.to(d) for x, d in zip(images.chunk(n), devices)]
 
 
 def data_parallel_forward(devices, config, replicas, images,

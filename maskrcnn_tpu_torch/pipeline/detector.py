@@ -26,6 +26,7 @@ from maskrcnn_tpu_torch.parallel.mesh import (data_parallel_forward,
 from maskrcnn_tpu_torch.pipeline.loader import letterbox_rgb
 from maskrcnn_tpu_torch.pipeline.preprocess import (LetterboxWindow,
                                                     quantize_canvas_u8)
+from maskrcnn_tpu_torch.utils.profiling import stage
 
 
 @dataclasses.dataclass
@@ -89,17 +90,18 @@ class MaskRCNNDetector:
         pastes full-resolution uint8 masks on the device
         (`out["pasted"]`). Over several devices the batch is padded to a
         multiple of their count and cut into one shard each."""
-        images = torch.as_tensor(images)
-        b = images.shape[0]
-        pad = (-b) % len(self.devices)
-        if pad:
-            # pad in the batch's own dtype: a uint8 batch stays uint8
-            images = torch.cat([images, images.new_zeros(
-                (pad, *images.shape[1:]))])
-        out = data_parallel_forward(self.devices, self.config,
-                                    self.replicas, images,
-                                    paste_size=paste_size)
-        return {k: v[:b] for k, v in out.items()} if pad else out
+        with stage("detector.run_batch"):
+            images = torch.as_tensor(images)
+            b = images.shape[0]
+            pad = (-b) % len(self.devices)
+            if pad:
+                # pad in the batch's own dtype: a uint8 batch stays uint8
+                images = torch.cat([images, images.new_zeros(
+                    (pad, *images.shape[1:]))])
+            out = data_parallel_forward(self.devices, self.config,
+                                        self.replicas, images,
+                                        paste_size=paste_size)
+            return {k: v[:b] for k, v in out.items()} if pad else out
 
     # --- host decode -------------------------------------------------------
 

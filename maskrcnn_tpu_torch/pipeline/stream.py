@@ -20,10 +20,18 @@ import torch
 
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
 from maskrcnn_tpu_torch.pipeline.preprocess import quantize_canvas_u8
+from maskrcnn_tpu_torch.utils.profiling import stage
 
 
 @dataclasses.dataclass
 class StreamStats:
+    """What `run_stream` saw: `frames` in `wall_s` of the stream, and the
+    latency of `latency_probes` blocking re-runs of its last full batch,
+    made after the stream ends. The `*_latency_ms` fields are those re-runs,
+    one caller waiting on each, not the time a frame spent inside the
+    stream: that is read from the `stream.dispatch` and `stream.sync` spans
+    in a profiler trace (from a batch's dispatch to the end of the first
+    sync after it)."""
     frames: int
     wall_s: float
     p50_latency_ms: float
@@ -70,7 +78,16 @@ def run_stream(
     `sync_every` batches: that bounds the outputs in flight (with
     `paste_size` each batch of 2 holds ~200 MB of pasted masks) while the
     host runs ahead of the card. Latency is measured afterwards, with
-    `latency_probes` blocking runs of the stream's last full input batch.
+    `latency_probes` blocking runs of the stream's last full input batch:
+    the `*_latency_ms` of the stats are those runs, not frames of the
+    stream.
+
+    Under a profiler the stream opens spans (`utils/profiling.stage`):
+    `stream.quantize` (each frame's quantize and each batch's stack),
+    `stream.dispatch` (`detector.run_batch`, with the batch's dispatch
+    index as `batch`) and `stream.sync` (a readback, with the index of the
+    last batch it waits for). A frame's time in the stream runs from its
+    batch's dispatch to the end of the first sync after it.
     """
     lat: list[float] = []
     n = 0
@@ -80,7 +97,8 @@ def run_stream(
 
     def run(batch) -> None:
         nonlocal n, last, dispatched, probe_src
-        out = detector.run_batch(batch, paste_size=paste_size)
+        with stage("stream.dispatch", batch=dispatched):
+            out = detector.run_batch(batch, paste_size=paste_size)
         if on_result is not None:
             on_result(n, out)
         last = out
@@ -89,7 +107,12 @@ def run_stream(
         if probe_src is None or batch.shape[0] >= probe_src.shape[0]:
             probe_src = batch
         if sync_every and dispatched % sync_every == 0:
-            _sync(out)
+            with stage("stream.sync", batch=dispatched - 1):
+                _sync(out)
+
+    def stack(buf: list[np.ndarray]) -> np.ndarray:
+        with stage("stream.quantize"):
+            return np.stack(buf)
 
     t_start = time.perf_counter()
     if prebatched:
@@ -98,14 +121,16 @@ def run_stream(
     else:
         buf: list[np.ndarray] = []
         for frame in frames:
-            buf.append(quantize_canvas_u8(np.asarray(frame)))
+            with stage("stream.quantize"):
+                buf.append(quantize_canvas_u8(np.asarray(frame)))
             if len(buf) == micro_batch:
-                run(np.stack(buf))
+                run(stack(buf))
                 buf = []
         if buf:
-            run(np.stack(buf))
+            run(stack(buf))
     if last is not None:
-        _sync(last)
+        with stage("stream.sync", batch=dispatched - 1):
+            _sync(last)
     wall = time.perf_counter() - t_start
 
     if latency_probes and probe_src is not None:

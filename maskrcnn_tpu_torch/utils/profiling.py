@@ -1,42 +1,39 @@
 """Tracing and profiling, port of `maskrcnn_tpu/utils/profiling.py`:
 
-  * `stage(name)`: a `torch.profiler.record_function` range, so a stage
-    shows by name in profiler traces;
-  * `trace(logdir)`: a `torch.profiler.profile` of the host and the card
-    around any region, written to `logdir` as a Chrome trace;
+  * `stage(name, **args)`: a named span of the program on the profiler's
+    timeline. Spans are gated on the profiler: with none recording,
+    `stage` returns a shared no-op context and costs one attribute read;
+    under `torch.profiler.profile` it opens a RecordFunction range, which
+    the profiler keeps in memory with its other events until the capture
+    ends. There is no flag: the profiler being on is the switch;
   * `StageTimer`: a host wall-clock phase timer with a report, used by the
-    evaluate CLI for its per-phase breakdown.
+    evaluate CLI for its per-phase breakdown; each phase is also a
+    `stage`, so the phases land on the same timeline.
+
+A span is a RecordFunction of function scope, as an aten op is: the
+profiler files it with the host's operations and does not mirror it onto
+the device timeline, where a user annotation (`torch.profiler.
+record_function`) would show as a device event stretching from the first
+to the last kernel launched inside it, idle gaps included. `args` (ints or
+strings) are recorded beside the span when the profiler records shapes.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
 import time
 from collections import defaultdict
 
+import torch
 
-def stage(name: str):
+_OFF = contextlib.nullcontext()
+
+
+def stage(name: str, **args):
     """Named range for a pipeline stage (shows up in profiler traces)."""
-    import torch
-
-    return torch.profiler.record_function(name)
-
-
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Capture a torch.profiler trace (host, and the card where there is
-    one) into `logdir/trace.json`."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name, (), args)
 
 
 class StageTimer:
@@ -50,7 +47,8 @@ class StageTimer:
     def phase(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with stage(name):
+                yield
         finally:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
