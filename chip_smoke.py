@@ -60,8 +60,11 @@ Phases, each printing one JSON line, any failure ends the run non-zero
   stream   `run_stream` with the fused heads (K5, K6) and on-device mask
            paste at 1024^2, score threshold 0, over 16 synthetic frames
            in micro-batches of --batch (the second main path, counted
-           the same way: K5 and K6 once per forward, K2 never), then one
-           profiled forward
+           the same way: K5 and K6 once per forward, K2 never; full
+           micro-batches replay a CUDA graph, whose replays count the
+           launches its capture recorded, and the first one's outputs
+           equal `run_batch`'s under `torch.equal`), then one profiled
+           forward
   train    training at R101-FPN @ 1024^2, 81 classes, bf16, batch --batch
            on a fixed synthetic batch (8 GT boxes an image, 28^2
            mini-masks), random weights from the seed with live BN: one
@@ -129,8 +132,9 @@ Phases, each printing one JSON line, any failure ends the run non-zero
            at the default and the zero score threshold (a main path, K1 and
            K2, never K3 or K4), the forward's time and profile,
            `run_stream` with both fused heads over 8 frames (a main path:
-           K5 and K6 once a forward), batch-BN `train_step` (1 warm-up, 3
-           timed: a main path, K1 and K2)
+           K5 and K6 once a forward, the first graphed micro-batch equal
+           to `run_batch`'s), batch-BN `train_step` (1 warm-up, 3 timed: a
+           main path, K1 and K2)
   export   `io/export.py`: the R101-FPN @ 1024^2 forward exported on the
            card at batch 1 (trace seconds, program bytes), reloaded in this
            process (a main path: K1-K4) and in a new one, each within 1e-4
@@ -856,6 +860,26 @@ STREAM_KERNELS = ("nms", "stem", "bottleneck", "roi_classifier_head",
                   "roi_mask_head")
 
 
+def stream_forwards(stats) -> int:
+    """The forwards a `run_stream` call ran, as `cuda_lib.launches` counts
+    them: its batches and probes, and for each CUDA graph it captured the
+    eager forward that precedes the capture (a replay counts the launches
+    its capture recorded)."""
+    return stats.batches + stats.latency_probes + stats.captures
+
+
+def graphed_vs_eager(detector, frames, batch, paste_size, graphed) -> list:
+    """The output keys of the stream's first micro-batch (`graphed`, kept
+    from `on_result`) that differ from `run_batch`'s on the same frames
+    under `torch.equal`: a stale static input or an output aliased by a
+    later replay shows here."""
+    want = detector.run_batch(np.stack(frames[:batch]),
+                              paste_size=paste_size)
+    return sorted(k for k in set(want) | set(graphed)
+                  if k not in want or k not in graphed
+                  or not torch.equal(want[k], graphed[k]))
+
+
 def profile_forward(detector, canvases, paste_size=None) -> dict:
     """Device time of one forward batch by kernel (torch.profiler): the
     port kernels, the rest by name, and the device's busy share of the
@@ -1010,17 +1034,23 @@ def stream(dev, seed, batch, frames=16):
     warm = np.stack(list(synthetic_frames(batch, size, seed + 1)))
     det.run_batch(warm, paste_size=size)                      # warm-up
     torch.cuda.synchronize()
-    last = {}
+    last, first = {}, {}
+    clip = list(synthetic_frames(frames, size, seed))
+
+    def keep(i, out):
+        first.setdefault("out", out)
+        last.update(out=out)
+
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    stats = run_stream(det, synthetic_frames(frames, size, seed),
-                       on_result=lambda i, out: last.update(out=out),
+    stats = run_stream(det, clip, on_result=keep,
                        micro_batch=batch, paste_size=size,
                        latency_probes=10, sync_every=8)   # main path
     torch.cuda.synchronize()
     launches = dict(cuda_lib.launches)
     peak = torch.cuda.max_memory_allocated()
-    forwards = -(-frames // batch) + stats.latency_probes
+    forwards = stream_forwards(stats)
+    graph_differs = graphed_vs_eager(det, clip, batch, size, first["out"])
 
     out = last["out"]
     pasted = out["pasted"]
@@ -1043,6 +1073,8 @@ def stream(dev, seed, batch, frames=16):
           "p95_latency_ms": stats.p95_latency_ms,
           "p99_latency_ms": stats.p99_latency_ms,
           "latency_probes": stats.latency_probes, "forwards": forwards,
+          "batches": stats.batches, "graphed_batches": stats.graphed_batches,
+          "captures": stats.captures, "graph_differs": graph_differs,
           "max_memory_allocated_bytes": peak, "launches": launches,
           "pasted": [list(pasted.shape), str(pasted.dtype)],
           "pasted_pixels_set": int(pasted.sum()),
@@ -1059,6 +1091,10 @@ def stream(dev, seed, batch, frames=16):
     if min(n_valid) != cfg.max_detections:
         raise AssertionError(f"expected {cfg.max_detections} detections "
                              f"per image at score threshold 0: {n_valid}")
+    if stats.graphed_batches != frames // batch or graph_differs:
+        raise AssertionError(f"{stats.graphed_batches} of {stats.batches} "
+                             "batches graphed; graphed outputs differ "
+                             f"from run_batch's in {graph_differs}")
     if launches["roi_align"]:
         raise AssertionError("the fused path launched K2 "
                              f"{launches['roi_align']} times")
@@ -2373,13 +2409,16 @@ def mnv2(dev, seed, batch, base, frames=8, timed_steps=3):
                     paste_size=size)                           # warm-up
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
-    stats = run_stream(fused, synthetic_frames(frames, size, seed),
+    clip, first = list(synthetic_frames(frames, size, seed)), {}
+    stats = run_stream(fused, clip,
+                       on_result=lambda i, out: first.setdefault("out", out),
                        micro_batch=batch, paste_size=size,
                        latency_probes=2, sync_every=4)         # main path
     torch.cuda.synchronize()
     launches_stream = dict(cuda_lib.launches)
-    forwards = -(-frames // batch) + stats.latency_probes
-    del fused, det
+    forwards = stream_forwards(stats)
+    graph_differs = graphed_vs_eager(fused, clip, batch, size, first["out"])
+    del fused, det, first
 
     tcfg = cfg                                   # train_bn "batch" default
     state, opt = T.make_train_state(low.params, tcfg)
@@ -2410,7 +2449,11 @@ def mnv2(dev, seed, batch, base, frames=8, timed_steps=3):
           "stream": {"frames": stats.frames, "fps": stats.fps,
                      "p50_latency_ms": stats.p50_latency_ms,
                      "p95_latency_ms": stats.p95_latency_ms,
-                     "forwards": forwards, "launches": launches_stream},
+                     "forwards": forwards, "launches": launches_stream,
+                     "batches": stats.batches,
+                     "graphed_batches": stats.graphed_batches,
+                     "captures": stats.captures,
+                     "graph_differs": graph_differs},
           "train_batch_bn": {"step_ms": times,
                              "step_ms_p50": float(np.median(times)),
                              "images_per_s": batch / np.median(times) * 1e3,
@@ -2437,6 +2480,10 @@ def mnv2(dev, seed, batch, base, frames=8, timed_steps=3):
         if launches_stream[k] != forwards:
             problems.append(f"{k} launched {launches_stream[k]} times in "
                             f"{forwards} forwards")
+    if stats.graphed_batches != frames // batch or graph_differs:
+        problems.append(f"{stats.graphed_batches} of {stats.batches} stream "
+                        "batches graphed; graphed outputs differ from "
+                        f"run_batch's in {graph_differs}")
     if not all(np.isfinite(v) for row in losses for v in row.values()):
         problems.append(f"non-finite training loss {losses}")
     if problems:

@@ -516,7 +516,8 @@ def cmd_stream(args) -> int:
     import torch
 
     from maskrcnn_tpu_torch.pipeline.preprocess import quantize_canvas_u8
-    from maskrcnn_tpu_torch.pipeline.stream import (frames_from_dir,
+    from maskrcnn_tpu_torch.pipeline.stream import (forward_batch,
+                                                    frames_from_dir,
                                                     run_stream,
                                                     synthetic_frames)
 
@@ -529,11 +530,12 @@ def cmd_stream(args) -> int:
     else:
         frames = synthetic_frames(args.num_frames, size)
 
-    # warm-up off the clock, uint8 as run_stream ships frames; with
-    # --device-paste the full-resolution paste runs inside the forward
+    # warm-up off the clock, uint8 as run_stream ships frames (on one card
+    # this captures the stream's CUDA graph); with --device-paste the
+    # full-resolution paste runs inside the forward
     paste_size = size if args.device_paste else None
-    detector.run_batch(np.zeros((args.micro_batch, size, size, 3),
-                                np.uint8), paste_size=paste_size)
+    forward_batch(detector, np.zeros((args.micro_batch, size, size, 3),
+                                     np.uint8), args.micro_batch, paste_size)
 
     valid_refs = []  # device references only: no readback on the hot path
 

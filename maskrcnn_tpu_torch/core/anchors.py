@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
+from maskrcnn_tpu_torch.ops.common import device_constant
 
 
 def generate_level_anchors(scale: float, ratios: np.ndarray,
@@ -117,18 +118,18 @@ def anchors_at(idx: torch.Tensor, spec) -> torch.Tensor:
     dev = idx.device
 
     def table(vals, dtype):
-        return torch.tensor(vals, dtype=dtype, device=dev)
+        return device_constant(tuple(vals), dtype, dev)
 
-    starts = table([lv[0] for lv in levels], torch.int64)
+    starts = table((lv[0] for lv in levels), torch.int64)
     level = (idx[..., None] >= starts[1:]).sum(-1)
     j = idx - starts[level]
     r = j % n_ratios
     cell = j // n_ratios
-    gw = table([lv[2] for lv in levels], torch.int64)[level]
-    step = table([float(lv[3]) for lv in levels], torch.float32)[level]
+    gw = table((lv[2] for lv in levels), torch.int64)[level]
+    step = table((float(lv[3]) for lv in levels), torch.float32)[level]
     cy = (cell // gw).to(torch.float32) * step
     cx = (cell % gw).to(torch.float32) * step
-    hw = table([[list(p) for p in lv[4]] for lv in levels], torch.float32)
+    hw = table((tuple(map(tuple, lv[4])) for lv in levels), torch.float32)
     hh = hw[level, r, 0]
     ww = hw[level, r, 1]
     sy = float(img_h - 1)

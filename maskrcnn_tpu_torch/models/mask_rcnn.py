@@ -33,6 +33,7 @@ import torch
 from maskrcnn_tpu_torch.core.anchors import anchor_spec, generate_anchors
 from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
 from maskrcnn_tpu_torch.models import fpn, heads, mobilenet, resnet, rpn
+from maskrcnn_tpu_torch.ops.common import constant_cache, device_constant
 from maskrcnn_tpu_torch.ops.detection import refine_detections
 from maskrcnn_tpu_torch.ops.proposals import generate_proposals
 from maskrcnn_tpu_torch.ops.roi_align import pyramid_roi_align
@@ -98,9 +99,16 @@ def params_to(params: dict[str, Any], device) -> dict[str, Any]:
 
 def preprocess(images: torch.Tensor, config: MaskRCNNConfig) -> torch.Tensor:
     """RGB [0, 255] -> mean-subtracted float32."""
-    mean = torch.tensor(config.mean_pixel, dtype=torch.float32,
-                        device=images.device)
+    mean = device_constant(tuple(config.mean_pixel), torch.float32,
+                           images.device)
     return images.to(torch.float32) - mean
+
+
+@constant_cache
+def anchor_table(config: MaskRCNNConfig, device) -> torch.Tensor:
+    """`generate_anchors(config)` on `device`, built once per config and
+    device (the forward reads it where `analytic_anchors` is off)."""
+    return torch.from_numpy(generate_anchors(config)).to(device)
 
 
 def backbone_fpn(params, images: torch.Tensor, config: MaskRCNNConfig,
@@ -163,7 +171,7 @@ def _forward(params, images, config, with_features, device, paste_size):
         # The anchor table is only read when anchors are not computed from
         # the top-k indices (`analytic_anchors=False`).
         anchors = (None if config.analytic_anchors else
-                   torch.from_numpy(generate_anchors(config)).to(dev))
+                   anchor_table(config, dev))
         rois, roi_valid = generate_proposals(
             fg_scores, rpn_deltas, anchors,
             bbox_std_dev=config.bbox_std_dev,

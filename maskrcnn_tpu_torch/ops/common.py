@@ -2,14 +2,54 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Sequence
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 
 def round_up(x: int, m: int) -> int:
     """Smallest multiple of `m` that is >= `x`."""
     return ((x + m - 1) // m) * m
+
+
+def tracing() -> bool:
+    """True while torch traces rather than runs: `torch.export`,
+    `torch.compile`, or under a dispatch mode such as fake tensors. A
+    tensor built then is a placeholder of the trace."""
+    return (torch.compiler.is_compiling()
+            or _get_current_dispatch_mode() is not None)
+
+
+def constant_cache(build: Callable) -> Callable:
+    """`functools.lru_cache` for a builder of tensors the forward only
+    reads, bypassed while `tracing()`: the trace gets a tensor of its own,
+    as it did before the cache, and no later eager call gets the trace's
+    placeholder back. `cache_clear` clears the cache."""
+    cached = functools.lru_cache(maxsize=None)(build)
+
+    @functools.wraps(build)
+    def get(*args):
+        return build(*args) if tracing() else cached(*args)
+
+    get.cache_clear = cached.cache_clear
+    return get
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """`torch.tensor(values, dtype=dtype, device=device)`, built once per
+    (values, dtype, device) and shared after (`constant_cache`). A small
+    tensor built from host numbers on every call is a host -> device copy
+    and a sync each time, and neither may run while a CUDA graph captures
+    the forward (`pipeline/stream.py`). `values` is a number or nested
+    tuples of numbers; callers only read the tensor."""
+    return _constant(values, dtype, torch.device(device))
+
+
+@constant_cache
+def _constant(values, dtype, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def graph_vjp(graph: Callable, tensors: Sequence[torch.Tensor],

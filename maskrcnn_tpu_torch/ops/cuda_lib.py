@@ -9,7 +9,9 @@ rebuilt. A failed build raises; there is no fallback.
 
 `launches` counts kernel launches per kernel family. Each wrapper adds one
 where it launches its kernel and nowhere else, so a caller can zero the
-counts, run the main path, and see which kernels it went through.
+counts, run the main path, and see which kernels it went through. A CUDA
+graph of the forward adds its kernels' launches at each replay, and none
+at its capture (`pipeline/stream.py::ForwardGraph`).
 """
 
 from __future__ import annotations

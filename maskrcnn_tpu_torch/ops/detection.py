@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from maskrcnn_tpu_torch.ops.boxes import apply_box_deltas, clip_boxes
+from maskrcnn_tpu_torch.ops.common import device_constant
 from maskrcnn_tpu_torch.ops.nms import nms_padded
 
 _CLASS_STRIDE = 2.0
@@ -38,7 +39,8 @@ def refine_detections(rois: torch.Tensor, class_probs: torch.Tensor,
     delta = torch.take_along_dim(
         class_deltas.to(torch.float32), class_id[..., None, None],
         dim=2)[:, :, 0, :]                                         # (B, R, 4)
-    std = torch.tensor(bbox_std_dev, dtype=torch.float32, device=rois.device)
+    std = device_constant(tuple(map(float, bbox_std_dev)), torch.float32,
+                          rois.device)
     refined = clip_boxes(apply_box_deltas(rois, delta * std))
 
     roi_area = (rois[..., 2] - rois[..., 0]) * (rois[..., 3] - rois[..., 1])

@@ -13,6 +13,7 @@ import torch
 
 from maskrcnn_tpu_torch.core.anchors import anchors_at
 from maskrcnn_tpu_torch.ops.boxes import apply_box_deltas, clip_boxes
+from maskrcnn_tpu_torch.ops.common import device_constant
 from maskrcnn_tpu_torch.ops.nms import nms_gather, nms_padded
 
 
@@ -43,8 +44,8 @@ def generate_proposals(fg_scores: torch.Tensor, deltas: torch.Tensor,
         sel_anchors = anchors_at(top_idx, anchor_spec)
     else:
         sel_anchors = anchors.to(torch.float32)[top_idx]
-    std = torch.tensor(bbox_std_dev, dtype=torch.float32,
-                       device=fg_scores.device)
+    std = device_constant(tuple(map(float, bbox_std_dev)), torch.float32,
+                          fg_scores.device)
     boxes = clip_boxes(apply_box_deltas(sel_anchors, sel_deltas * std))
     idx, valid = nms_padded(boxes, torch.ones_like(top_idx, dtype=torch.bool),
                             nms_threshold, max_proposals)

@@ -20,6 +20,7 @@ from typing import Sequence
 
 import torch
 
+from maskrcnn_tpu_torch.ops.common import device_constant
 from maskrcnn_tpu_torch.ops.roi_align_cuda import (RoiAlignDiff, roi_align,
                                                    roi_classifier_head,
                                                    roi_mask_head)
@@ -35,7 +36,7 @@ def roi_levels(rois: torch.Tensor, image_shape: tuple[int, int],
     area = w * h
     image_area = float(image_shape[0]) * float(image_shape[1])
     ratio = canonical_scale / torch.sqrt(
-        torch.tensor(image_area, dtype=torch.float32, device=rois.device))
+        device_constant(image_area, torch.float32, rois.device))
     lvl = (0.5 * torch.log2(area.clamp_min(1e-30)) - torch.log2(ratio)
            + 4.0)
     # Round half away from zero (the reference's Swift round()); lvl > 0.
@@ -74,8 +75,10 @@ def prepare(rois: torch.Tensor, level_hw: Sequence[tuple[int, int]],
     level, valid = roi_levels(rois, image_shape, canonical_scale,
                               min_level=2, max_level=2 + len(level_hw) - 1)
     dev = rois.device
-    heights = torch.tensor([float(h) for h, _ in level_hw], device=dev)
-    widths = torch.tensor([float(w) for _, w in level_hw], device=dev)
+    heights = device_constant(tuple(float(h) for h, _ in level_hw),
+                              torch.float32, dev)
+    widths = device_constant(tuple(float(w) for _, w in level_hw),
+                             torch.float32, dev)
     li = level.to(torch.int64)
     fh, fw = heights[li], widths[li]
     ys = _crop_grid(rois[:, 0], rois[:, 2], fh - 1.0, crop)

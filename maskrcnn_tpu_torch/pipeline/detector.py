@@ -48,7 +48,10 @@ class MaskRCNNDetector:
     `data_parallel`: split each batch over this many devices of
     `device`'s kind (0: `device` alone, -1: all; `parallel/mesh.py`), the
     params replicated on each once. `devices` lists the devices and
-    `replicas` the params on each; `params` is the first copy."""
+    `replicas` the params on each; `params` is the first copy. `graphs`
+    holds the CUDA graphs of the forward that `run_stream` captured on
+    this detector, by input shape, dtype and `paste_size`
+    (`pipeline/stream.py::ForwardGraph`)."""
 
     def __init__(self, config: MaskRCNNConfig, params: dict[str, Any],
                  mask_threshold: float = 0.5, device=None,
@@ -60,6 +63,7 @@ class MaskRCNNDetector:
                         if data_parallel else [self.device])
         self.replicas = replicate(self.devices, params)
         self.params = self.replicas[0]
+        self.graphs: dict[tuple, Any] = {}
 
     @classmethod
     def from_random(cls, config: MaskRCNNConfig, seed: int = 0, device=None):

@@ -4,6 +4,12 @@ micro-batches, dispatched back to back with a bounded queue, with the
 masks optionally pasted on the device inside the forward (`paste_size`);
 then a few blocking probes measure the latency one synchronous caller sees.
 
+On one card, every full micro-batch replays a CUDA graph of the forward
+(`ForwardGraph`), captured at the first one and kept on the detector: the
+host launches one graph where it dispatched several hundred kernels a
+frame. Other batches (the last partial one, CPU tensors, a detector over
+several devices) run the forward eagerly through `detector.run_batch`.
+
     stats = run_stream(detector, synthetic_frames(64, 1024), micro_batch=2,
                        paste_size=1024)
     stats = run_stream(detector, frames_from_dir("clip/", 1024))
@@ -18,6 +24,8 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from maskrcnn_tpu_torch.models.mask_rcnn import forward
+from maskrcnn_tpu_torch.ops import cuda_lib
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
 from maskrcnn_tpu_torch.pipeline.preprocess import quantize_canvas_u8
 from maskrcnn_tpu_torch.utils.profiling import stage
@@ -40,6 +48,12 @@ class StreamStats:
     p95_latency_ms: float = 0.0
     p99_latency_ms: float = 0.0
     latency_probes: int = 0
+    # Micro-batches of the stream (probes not counted), those of them
+    # replayed from a CUDA graph, and the graphs this call captured (0 when
+    # an earlier call on the detector captured the one it replays).
+    batches: int = 0
+    graphed_batches: int = 0
+    captures: int = 0
 
     @property
     def fps(self) -> float:
@@ -50,6 +64,77 @@ def _sync(out: dict) -> None:
     """Read one element back to the host: on the card this waits until the
     batch (and every batch queued before it on the stream) is done."""
     out["detections"][0, 0, 0].item()
+
+
+class ForwardGraph:
+    """The detector's forward (`models/mask_rcnn.py::forward`) captured in
+    a CUDA graph at one input shape and dtype and one `paste_size`, with
+    its static input and outputs. Made once: the forward runs eagerly on a
+    side stream (cuDNN's plans, the kernels' build and the allocator
+    warm), then is captured.
+
+    A call copies a batch into the static input (pageable and blocking,
+    as `run_batch`'s copy) and replays the graph; it returns clones of the
+    outputs, since the next replay overwrites the static ones.
+
+    `ops/cuda_lib.launches` counts the kernels that run: the capture
+    records launches without running them, so they are taken off the
+    counts and added again at each replay."""
+
+    def __init__(self, detector: MaskRCNNDetector, shape: tuple,
+                 dtype: torch.dtype, paste_size: int | None):
+        dev = detector.device
+        self.input = torch.zeros(shape, dtype=dtype, device=dev)
+
+        def run():
+            return forward(detector.params, self.input, detector.config,
+                           device=dev, paste_size=paste_size)
+
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            before = dict(cuda_lib.launches)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.outputs = run()
+        self.launches = {k: n - before[k]
+                         for k, n in cuda_lib.launches.items()}
+        self._count(-1)
+
+    def _count(self, sign: int) -> None:
+        for k, n in self.launches.items():
+            cuda_lib.launches[k] += sign * n
+
+    def __call__(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
+        with stage("stream.copy_in"):
+            self.input.copy_(images)
+        self.graph.replay()
+        self._count(1)
+        return {k: v.clone() for k, v in self.outputs.items()}
+
+
+def forward_batch(detector: MaskRCNNDetector, batch, micro_batch: int,
+                  paste_size: int | None = None
+                  ) -> tuple[dict[str, torch.Tensor], bool, bool]:
+    """One batch as `run_stream` dispatches it -> (outputs, graphed,
+    captured). A full micro-batch on a detector with one card replays the
+    detector's `ForwardGraph` for its shape, dtype and `paste_size`,
+    captured here on first use; any other batch runs `run_batch`."""
+    images = torch.as_tensor(batch)
+    if not (detector.device.type == "cuda" and len(detector.devices) == 1
+            and images.shape[0] == micro_batch):
+        return detector.run_batch(images, paste_size=paste_size), False, \
+            False
+    key = (tuple(images.shape), images.dtype, paste_size)
+    graph = detector.graphs.get(key)
+    captured = graph is None
+    if captured:
+        with stage("stream.capture"):
+            graph = detector.graphs[key] = ForwardGraph(detector, *key)
+    return graph(images), True, captured
 
 
 def run_stream(
@@ -82,23 +167,40 @@ def run_stream(
     the `*_latency_ms` of the stats are those runs, not frames of the
     stream.
 
+    On a detector with one card, each full micro-batch (and each probe of
+    one) replays the detector's CUDA graph of the forward for its shape,
+    dtype and `paste_size` (`ForwardGraph`, captured at the first such
+    batch and kept in `detector.graphs` for later calls); the stats count
+    the batches, the graphed ones and the captures. Every other batch runs
+    `detector.run_batch`.
+
     Under a profiler the stream opens spans (`utils/profiling.stage`):
     `stream.quantize` (each frame's quantize and each batch's stack),
-    `stream.dispatch` (`detector.run_batch`, with the batch's dispatch
-    index as `batch`) and `stream.sync` (a readback, with the index of the
+    `stream.dispatch` (`detector.run_batch`, or the graph's input copy
+    `stream.copy_in` and replay, with the batch's dispatch index as
+    `batch`), `stream.capture` (a graph's capture, inside the dispatch of
+    its first batch) and `stream.sync` (a readback, with the index of the
     last batch it waits for). A frame's time in the stream runs from its
     batch's dispatch to the end of the first sync after it.
     """
     lat: list[float] = []
     n = 0
     last = None
-    dispatched = 0
+    dispatched = graphed = captures = 0
     probe_src = None  # the last full input batch; the probes re-run it
+
+    def dispatch(batch) -> dict:
+        nonlocal graphed, captures
+        out, was_graphed, captured = forward_batch(detector, batch,
+                                                   micro_batch, paste_size)
+        graphed += was_graphed
+        captures += captured
+        return out
 
     def run(batch) -> None:
         nonlocal n, last, dispatched, probe_src
         with stage("stream.dispatch", batch=dispatched):
-            out = detector.run_batch(batch, paste_size=paste_size)
+            out = dispatch(batch)
         if on_result is not None:
             on_result(n, out)
         last = out
@@ -133,12 +235,13 @@ def run_stream(
             _sync(last)
     wall = time.perf_counter() - t_start
 
+    batches, graphed_batches = dispatched, graphed
     if latency_probes and probe_src is not None:
         probe = torch.as_tensor(probe_src).to(detector.device)
         probe.reshape(-1)[0].item()  # staged on the device off the clock
         for _ in range(latency_probes):
             t0 = time.perf_counter()
-            _sync(detector.run_batch(probe, paste_size=paste_size))
+            _sync(dispatch(probe))
             lat.append(time.perf_counter() - t0)
     if lat:
         ms = np.asarray(lat) * 1000.0
@@ -147,7 +250,8 @@ def run_stream(
         p50 = p95 = p99 = 0.0
     return StreamStats(frames=n, wall_s=wall, p50_latency_ms=p50,
                        p95_latency_ms=p95, p99_latency_ms=p99,
-                       latency_probes=len(lat))
+                       latency_probes=len(lat), batches=batches,
+                       graphed_batches=graphed_batches, captures=captures)
 
 
 def synthetic_frames(n: int, size: int, seed: int = 0
