@@ -4,8 +4,11 @@ Everything is found by name from files: the cell in `BENCHMARK.json`'s
 `workloads`, its configuration in `configs/<config>.json`, its traffic mix
 in `traffic/<traffic>.json` (which names its driver,
 `drivers/<driver>.py`), its comparison limits in `workloads/<cell>.json`,
-and each per-layer metric's reader in `metrics/<metric>.py`. A later
-change adds a configuration, a mix, a cell or a metric by adding files.
+each per-layer metric's reader in `metrics/<metric>.py`, and the
+configuration's backbone (the reference's layers, weight layout,
+multiply-adds and kernel work) in `reference/backbones/<architecture>.py`.
+A later change adds a configuration, an architecture, a mix, a cell or a
+metric by adding files.
 """
 
 from __future__ import annotations

@@ -2,12 +2,15 @@
 
 A float32 forward of the published architectures (He et al.,
 arXiv:1703.06870, in Matterport's Keras topology and layer names:
-ResNet-101 or MobileNetV2 width 1.0 -> FPN P2..P6 -> RPN -> proposals ->
-pyramid ROIAlign -> classifier head -> detection refine -> mask head), with
-no kernel, no fusion and no batching trick. It imports nothing of the
-system under test: it reads the same raw parameter dict ({layer: {weight:
-tensor}}, kernels HWIO, float32) that the benchmark hands the program,
-and applies BatchNorm (eps 1e-3, moving statistics) itself.
+backbone and neck -> P2..P6 -> RPN -> proposals -> pyramid ROIAlign ->
+classifier head -> detection refine -> mask head), with no kernel, no
+fusion and no batching trick. Each backbone and its neck is a file of
+`backbones/`, found by the configuration's `architecture`; this module
+holds the layers they share, Matterport's top-down FPN among them, and
+everything from the RPN on. It imports nothing of the system under test:
+it reads the same raw parameter dict ({layer: {weight: tensor}}, kernels
+HWIO, float32) that the benchmark hands the program, and applies
+BatchNorm (eps 1e-3, moving statistics) itself.
 
 `Numerics` picks the precision of every convolution and matmul operand:
 float32 (TF32 off, the reference) or float8 e4m3 with one scale per
@@ -30,18 +33,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmark.reference import backbones
+
 BN_EPS = 1e-3
 FP8_MAX = 448.0     # largest finite float8 e4m3fn
-
-# ResNet: (stage, [f1, f2, f3], first stride, identity blocks)
-RESNET_STAGES = {"resnet50": 5, "resnet101": 22}
-# MobileNetV2 (Sandler et al., Table 2): (expansion, channels, repeats,
-# first stride); C2..C5 taps after groups 1, 2, 4, 6.
-MBV2_GROUPS = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
-               (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1))
-MBV2_TAPS = (1, 2, 4, 6)
-MBV2_C = (24, 32, 96, 320)
-RESNET_C = (256, 512, 1024, 2048)
 
 
 class Numerics:
@@ -64,83 +59,45 @@ class Numerics:
 # Parameter layout (names and shapes the benchmark makes weights for)
 # --------------------------------------------------------------------------
 
-def resnet_blocks(architecture: str):
-    """(stage, letter, is_conv_block, (f1, f2, f3), stride) per block."""
-    spec = ((2, (64, 64, 256), 1, 2), (3, (128, 128, 512), 2, 3),
-            (4, (256, 256, 1024), 2, RESNET_STAGES[architecture]),
-            (5, (512, 512, 2048), 2, 2))
-    for stage, filters, stride, n_identity in spec:
-        yield stage, "a", True, filters, stride
-        for i in range(n_identity):
-            yield stage, chr(ord("b") + i), False, filters, 1
+def conv_shape(kh: int, kw: int, cin: int, cout: int) -> dict[str, tuple]:
+    return {"kernel": (kh, kw, cin, cout), "bias": (cout,)}
+
+
+def bn_shape(c: int) -> dict[str, tuple]:
+    return {k: (c,) for k in ("gamma", "beta", "moving_mean",
+                              "moving_variance")}
+
+
+def topdown_fpn_shapes(cfg, c_channels) -> dict[str, dict[str, tuple]]:
+    """Matterport's FPN over C2..C5 of `c_channels` widths."""
+    shapes, ch = {}, cfg.fpn_channels
+    for lvl, cin in zip((2, 3, 4, 5), c_channels):
+        shapes[f"fpn_c{lvl}p{lvl}"] = conv_shape(1, 1, cin, ch)
+        shapes[f"fpn_p{lvl}"] = conv_shape(3, 3, ch, ch)
+    return shapes
 
 
 def param_shapes(cfg) -> dict[str, dict[str, tuple]]:
-    """{layer: {weight: shape}} of the whole model, Matterport names
-    (MobileNetV2: `mbv2_*`)."""
-    shapes: dict[str, dict[str, tuple]] = {}
-
-    def conv(name, kh, kw, cin, cout):
-        shapes[name] = {"kernel": (kh, kw, cin, cout), "bias": (cout,)}
-
-    def bn(name, c):
-        shapes[name] = {k: (c,) for k in ("gamma", "beta", "moving_mean",
-                                          "moving_variance")}
-
-    if cfg.architecture == "mobilenetv2":
-        conv("mbv2_stem", 3, 3, 3, 32)
-        bn("mbv2_stem_bn", 32)
-        cin = 32
-        for gi, (t, c, n, _) in enumerate(MBV2_GROUPS):
-            for bi in range(n):
-                base, hidden = f"mbv2_g{gi}b{bi}", cin * t
-                if t != 1:
-                    conv(base + "_expand", 1, 1, cin, hidden)
-                    bn(base + "_expand_bn", hidden)
-                shapes[base + "_dw"] = {"kernel": (3, 3, 1, hidden),
-                                        "bias": (hidden,)}
-                bn(base + "_dw_bn", hidden)
-                conv(base + "_project", 1, 1, hidden, c)
-                bn(base + "_project_bn", c)
-                cin = c
-        c_channels = MBV2_C
-    else:
-        conv("conv1", 7, 7, 3, 64)
-        bn("bn_conv1", 64)
-        cin = 64
-        for stage, letter, is_conv, (f1, f2, f3), _ in resnet_blocks(
-                cfg.architecture):
-            base, bnb = f"res{stage}{letter}_branch", f"bn{stage}{letter}_branch"
-            for suffix, (kh, ci, co) in (("2a", (1, cin, f1)),
-                                         ("2b", (3, f1, f2)),
-                                         ("2c", (1, f2, f3))):
-                conv(base + suffix, kh, kh, ci, co)
-                bn(bnb + suffix, co)
-            if is_conv:
-                conv(base + "1", 1, 1, cin, f3)
-                bn(bnb + "1", f3)
-            cin = f3
-        c_channels = RESNET_C
+    """{layer: {weight: shape}} of the whole model, Matterport names: the
+    backbone file's layers (up to `fpn_p5`), then the RPN and the heads."""
+    shapes = backbones.load(cfg.architecture).param_shapes(cfg)
     ch = cfg.fpn_channels
-    for lvl, cin in zip((2, 3, 4, 5), c_channels):
-        conv(f"fpn_c{lvl}p{lvl}", 1, 1, cin, ch)
-        conv(f"fpn_p{lvl}", 3, 3, ch, ch)
     apl = len(cfg.anchor_ratios)
-    conv("rpn_conv_shared", 3, 3, ch, 512)
-    conv("rpn_class_raw", 1, 1, 512, 2 * apl)
-    conv("rpn_bbox_pred", 1, 1, 512, 4 * apl)
+    shapes["rpn_conv_shared"] = conv_shape(3, 3, ch, 512)
+    shapes["rpn_class_raw"] = conv_shape(1, 1, 512, 2 * apl)
+    shapes["rpn_bbox_pred"] = conv_shape(1, 1, 512, 4 * apl)
     nc, fc, p = cfg.num_classes, cfg.head_fc_dim, cfg.pool_size
-    conv("mrcnn_class_conv1", p, p, ch, fc)
-    bn("mrcnn_class_bn1", fc)
-    conv("mrcnn_class_conv2", 1, 1, fc, fc)
-    bn("mrcnn_class_bn2", fc)
+    shapes["mrcnn_class_conv1"] = conv_shape(p, p, ch, fc)
+    shapes["mrcnn_class_bn1"] = bn_shape(fc)
+    shapes["mrcnn_class_conv2"] = conv_shape(1, 1, fc, fc)
+    shapes["mrcnn_class_bn2"] = bn_shape(fc)
     shapes["mrcnn_class_logits"] = {"kernel": (fc, nc), "bias": (nc,)}
     shapes["mrcnn_bbox_fc"] = {"kernel": (fc, 4 * nc), "bias": (4 * nc,)}
     for i in range(1, 5):
-        conv(f"mrcnn_mask_conv{i}", 3, 3, ch, ch)
-        bn(f"mrcnn_mask_bn{i}", ch)
-    conv("mrcnn_mask_deconv", 2, 2, ch, ch)
-    conv("mrcnn_mask", 1, 1, ch, nc)
+        shapes[f"mrcnn_mask_conv{i}"] = conv_shape(3, 3, ch, ch)
+        shapes[f"mrcnn_mask_bn{i}"] = bn_shape(ch)
+    shapes["mrcnn_mask_deconv"] = conv_shape(2, 2, ch, ch)
+    shapes["mrcnn_mask"] = conv_shape(1, 1, ch, nc)
     return shapes
 
 
@@ -148,7 +105,7 @@ def param_shapes(cfg) -> dict[str, dict[str, tuple]]:
 # Layers (NCHW float32 activations, HWIO kernels)
 # --------------------------------------------------------------------------
 
-def _same(size: int, k: int, s: int) -> tuple[int, int]:
+def same(size: int, k: int, s: int) -> tuple[int, int]:
     out = -(-size // s)
     total = max((out - 1) * s + k - size, 0)
     return total // 2, total - total // 2
@@ -158,8 +115,8 @@ def conv(x, p, nx: Numerics, stride=1, padding="SAME", groups=1):
     k = p["kernel"]
     kh, kw = k.shape[0], k.shape[1]
     if padding == "SAME":
-        (t, b), (l, r) = _same(x.shape[2], kh, stride), _same(x.shape[3], kw,
-                                                              stride)
+        (t, b), (l, r) = same(x.shape[2], kh, stride), same(x.shape[3], kw,
+                                                            stride)
     elif padding == "VALID":
         t = b = l = r = 0
     else:
@@ -184,64 +141,12 @@ def dense(x, p, nx: Numerics):
 
 
 # --------------------------------------------------------------------------
-# Backbones, FPN, RPN
+# FPN, RPN
 # --------------------------------------------------------------------------
 
-def resnet(params, x, architecture, nx):
-    x = conv(x, params["conv1"], nx, stride=2, padding=3)
-    x = torch.relu(bn(x, params["bn_conv1"]))
-    (t, b), (l, r) = _same(x.shape[2], 3, 2), _same(x.shape[3], 3, 2)
-    x = F.max_pool2d(F.pad(x, (l, r, t, b), value=float("-inf")), 3, 2)
-    feats = {}
-    for stage, letter, is_conv, _, stride in resnet_blocks(architecture):
-        base, bnb = f"res{stage}{letter}_branch", f"bn{stage}{letter}_branch"
-        y = torch.relu(bn(conv(x, params[base + "2a"], nx, stride=stride,
-                               padding="VALID"), params[bnb + "2a"]))
-        y = torch.relu(bn(conv(y, params[base + "2b"], nx),
-                          params[bnb + "2b"]))
-        y = bn(conv(y, params[base + "2c"], nx, padding="VALID"),
-               params[bnb + "2c"])
-        sc = (bn(conv(x, params[base + "1"], nx, stride=stride,
-                      padding="VALID"), params[bnb + "1"])
-              if is_conv else x)
-        x = torch.relu(y + sc)
-        feats[stage] = x
-    return [feats[s] for s in (2, 3, 4, 5)]
-
-
-def mobilenetv2(params, x, nx):
-    relu6 = lambda t: t.clamp(0.0, 6.0)
-    x = relu6(bn(conv(x, params["mbv2_stem"], nx, stride=2),
-                 params["mbv2_stem_bn"]))
-    taps = []
-    for gi, (t, c, n, s) in enumerate(MBV2_GROUPS):
-        for bi in range(n):
-            base, stride, cin = f"mbv2_g{gi}b{bi}", (s if bi == 0 else 1), \
-                x.shape[1]
-            y = x
-            if t != 1:
-                y = relu6(bn(conv(y, params[base + "_expand"], nx,
-                                  padding="VALID"),
-                             params[base + "_expand_bn"]))
-            y = relu6(bn(conv(y, params[base + "_dw"], nx, stride=stride,
-                              groups=y.shape[1]), params[base + "_dw_bn"]))
-            y = bn(conv(y, params[base + "_project"], nx, padding="VALID"),
-                   params[base + "_project_bn"])
-            x = y + x if stride == 1 and cin == c else y
-        if gi in MBV2_TAPS:
-            taps.append(x)
-    return taps
-
-
-def backbone_fpn(params, images_u8, cfg, nx):
-    """(B, H, W, 3) RGB [0, 255] canvases -> [P2, P3, P4, P5, P6] NCHW."""
-    mean = torch.tensor(cfg.mean_pixel, dtype=torch.float32,
-                        device=images_u8.device)
-    x = (images_u8.float() - mean).permute(0, 3, 1, 2)
-    if cfg.architecture == "mobilenetv2":
-        c2, c3, c4, c5 = mobilenetv2(params, x, nx)
-    else:
-        c2, c3, c4, c5 = resnet(params, x, cfg.architecture, nx)
+def topdown_fpn(params, c_maps, nx):
+    """Matterport's FPN: C2..C5 -> [P2, P3, P4, P5, P6]."""
+    c2, c3, c4, c5 = c_maps
     up = lambda t: F.interpolate(t, scale_factor=2, mode="nearest")
     p5 = conv(c5, params["fpn_c5p5"], nx, padding="VALID")
     p4 = up(p5) + conv(c4, params["fpn_c4p4"], nx, padding="VALID")
@@ -250,6 +155,15 @@ def backbone_fpn(params, images_u8, cfg, nx):
     out = [conv(p, params[f"fpn_p{i}"], nx)
            for i, p in zip((2, 3, 4, 5), (p2, p3, p4, p5))]
     return out + [out[3][:, :, ::2, ::2]]
+
+
+def backbone_fpn(params, images_u8, cfg, nx):
+    """(B, H, W, 3) RGB [0, 255] canvases -> [P2, P3, P4, P5, P6] NCHW,
+    by the configuration's backbone file."""
+    mean = torch.tensor(cfg.mean_pixel, dtype=torch.float32,
+                        device=images_u8.device)
+    x = (images_u8.float() - mean).permute(0, 3, 1, 2)
+    return backbones.load(cfg.architecture).pyramid(params, x, cfg, nx)
 
 
 def rpn(params, pyramid, nx):

@@ -17,6 +17,7 @@ from collections import defaultdict
 
 import torch
 
+from benchmark.reference import backbones
 from benchmark.reference import model as R
 
 # NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s, bf16 tensor-core FLOP/s,
@@ -33,7 +34,7 @@ def bound_s(nbytes: float, flops: float, peak: float) -> float:
     return max(nbytes / HBM_BYTES_S, flops / peak)
 
 
-def _ceil(a: int, b: int) -> int:
+def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
@@ -41,53 +42,22 @@ def _ceil(a: int, b: int) -> int:
 # Model multiply-adds per image (convolutions and matmuls)
 # --------------------------------------------------------------------------
 
-def resnet_macs(architecture: str, h: int, w: int) -> tuple[float, tuple]:
-    """Backbone MACs per image and the C2..C5 channel widths."""
-    macs = _ceil(h, 2) * _ceil(w, 2) * 7 * 7 * 3 * 64
-    cin = 64
-    spec = ((4, (64, 64, 256), 2), (8, (128, 128, 512), 3),
-            (16, (256, 256, 1024), R.RESNET_STAGES[architecture]),
-            (32, (512, 512, 2048), 2))
-    for stride, (f1, f2, f3), n_identity in spec:
-        hw = _ceil(h, stride) * _ceil(w, stride)
-        for block in range(n_identity + 1):
-            per = cin * f1 + 9 * f1 * f2 + f2 * f3
-            if block == 0:
-                per += cin * f3
-            macs += hw * per
-            cin = f3
-    return float(macs), R.RESNET_C
-
-
-def mobilenetv2_macs(h: int, w: int) -> tuple[float, tuple]:
-    sh, sw = _ceil(h, 2), _ceil(w, 2)
-    macs = sh * sw * 9 * 3 * 32
-    cin = 32
-    for t, c, n, s in R.MBV2_GROUPS:
-        for i in range(n):
-            stride = s if i == 0 else 1
-            hidden = cin * t
-            if t != 1:
-                macs += sh * sw * cin * hidden
-            sh, sw = _ceil(sh, stride), _ceil(sw, stride)
-            macs += sh * sw * (9 * hidden + hidden * c)
-            cin = c
-    return float(macs), R.MBV2_C
+def topdown_fpn_macs(cfg, c_channels) -> float:
+    """Matterport's FPN over C2..C5 of `c_channels` widths: the lateral
+    1x1s and the 3x3 outputs P2..P5."""
+    ch = cfg.fpn_channels
+    return float(sum(fh * fw * (cin * ch + 9 * ch * ch)
+                     for (fh, fw), cin in zip(cfg.feature_shapes[:4],
+                                              c_channels)))
 
 
 def model_macs(cfg) -> dict[str, float]:
     """MACs per image by part: backbone, fpn, rpn, classifier head over
     `max_proposals` ROIs, mask head over `max_detections` (every padded
-    row is computed)."""
-    h, w = cfg.image_height, cfg.image_width
-    if cfg.architecture == "mobilenetv2":
-        backbone, c_ch = mobilenetv2_macs(h, w)
-    else:
-        backbone, c_ch = resnet_macs(cfg.architecture, h, w)
+    row is computed); the backbone and the neck by the backbone's file."""
+    own = backbones.load(cfg.architecture).macs(cfg)
     ch = cfg.fpn_channels
     sizes = cfg.feature_shapes                       # P2..P6
-    fpn = sum(fh * fw * (cin * ch + 9 * ch * ch)
-              for (fh, fw), cin in zip(sizes[:4], c_ch))
     apl = len(cfg.anchor_ratios)
     rpn = sum(fh * fw * (9 * ch * 512 + 512 * 6 * apl) for fh, fw in sizes)
     nc, fc, p = cfg.num_classes, cfg.head_fc_dim, cfg.pool_size
@@ -95,7 +65,8 @@ def model_macs(cfg) -> dict[str, float]:
     mp = cfg.mask_pool_size
     mask = cfg.max_detections * (mp * mp * (4 * 9 * ch * ch + 4 * ch * ch)
                                  + (2 * mp) ** 2 * ch)
-    return {"backbone": backbone, "fpn": float(fpn), "rpn": float(rpn),
+    return {"backbone": float(own["backbone"]), "fpn": float(own["fpn"]),
+            "rpn": float(rpn),
             "classifier_head": float(cls), "mask_head": float(mask)}
 
 
@@ -225,21 +196,16 @@ def stem_call(b, cfg) -> tuple[float, float, float]:
     the pooled bf16 map written."""
     h, w = cfg.image_height, cfg.image_width
     nbytes = (b * h * w * 3 * F32 + 7 * 7 * 3 * 64 * BF16 + 64 * F32
-              + b * _ceil(h, 4) * _ceil(w, 4) * 64 * BF16)
-    flops = 2.0 * b * _ceil(h, 2) * _ceil(w, 2) * 64 * 147
+              + b * ceil_div(h, 4) * ceil_div(w, 4) * 64 * BF16)
+    flops = 2.0 * b * ceil_div(h, 2) * ceil_div(w, 2) * 64 * 147
     return nbytes, flops, BF16_FLOPS
 
 
-# The chains K4 runs: (stride of the map, input channels, (f1, f2, f3),
-# blocks, whether the first block has the projection shortcut).
-CHAINS = ((4, 64, (64, 64, 256), 3, True), (8, 512, (128, 128, 512), 3,
-                                            False))
-
-
 def chain_call(b, cfg, chain) -> tuple[float, float, float]:
-    """K4 on one chain of bottleneck blocks at the map's full size."""
+    """K4 on one chain of bottleneck blocks at the map's full size; a
+    chain as the ResNet file's `CHAINS` gives it."""
     stride, cin, (f1, f2, f3), n, proj = chain
-    hw = _ceil(cfg.image_height, stride) * _ceil(cfg.image_width, stride)
+    hw = ceil_div(cfg.image_height, stride) * ceil_div(cfg.image_width, stride)
     flops = weights = 0.0
     c = cin
     for i in range(n):
@@ -258,15 +224,17 @@ def chain_call(b, cfg, chain) -> tuple[float, float, float]:
 def forward_work(cfg, forwards) -> dict[str, list]:
     """(bytes, flops, peak) of each port kernel call of the given forwards,
     (rois (B, R, 4), detection boxes (B, D, 4)) each, by kernel family;
-    which kernels run follows the configuration (K3/K4 on ResNet, K5/K6
-    where the heads are fused, else K2 for both pools). K1's calls are
-    data-dependent: `nms_call` on what each call received."""
+    which kernels run follows the configuration (the backbone's own, by
+    its file's `kernel_work`: K3/K4 on ResNet; K5/K6 where the heads are
+    fused, else K2 for both pools). K1's calls are data-dependent:
+    `nms_call` on what each call received."""
+    kernel_work = getattr(backbones.load(cfg.architecture), "kernel_work",
+                          None)
     work: dict[str, list] = defaultdict(list)
     for rois, boxes in forwards:
-        b = rois.shape[0]
-        if cfg.architecture != "mobilenetv2":
-            work["stem"].append(stem_call(b, cfg))
-            work["bottleneck"] += [chain_call(b, cfg, c) for c in CHAINS]
+        if kernel_work is not None:
+            for family, calls in kernel_work(cfg, rois.shape[0]).items():
+                work[family] += calls
         if cfg.fuse_classifier_head:
             work["roi_classifier_head"].append(
                 classifier_head_call(rois, cfg))

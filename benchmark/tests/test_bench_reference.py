@@ -4,17 +4,20 @@ independence from the program."""
 from __future__ import annotations
 
 import ast
+import glob
+import json
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from benchmark.reference import check
+from benchmark.harness import HERE
+from benchmark.reference import backbones, check
 from benchmark.reference import model as R
 from benchmark.weights import make_params
 
-ARCHS = ["resnet50", "resnet101", "mobilenetv2"]
+ARCHS = backbones.names()
 
 
 def tiny(arch, **kw):
@@ -22,6 +25,18 @@ def tiny(arch, **kw):
     return tiny_test_config().replace(architecture=arch,
                                       compute_dtype="float32",
                                       detection_score_threshold=0.0, **kw)
+
+
+def test_every_architecture_has_a_backbone_file():
+    """Each architecture the port accepts, and each one a configuration
+    of the benchmark names, has its file in the registry."""
+    from maskrcnn_tpu_torch.core.config import _VALID_ARCHITECTURES
+    configured = set()
+    for path in glob.glob(os.path.join(HERE, "configs", "*.json")):
+        with open(path) as f:
+            configured.add(json.load(f)["config"]["architecture"])
+    assert configured
+    assert set(_VALID_ARCHITECTURES) | configured <= set(ARCHS)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -92,14 +107,19 @@ def _imports(path):
 
 
 def test_reference_imports_nothing_of_the_program():
+    """The reference and every backbone file of its registry."""
     here = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                         "reference")
-    for name in os.listdir(here):
-        if name.endswith(".py"):
-            tops = {m.split(".")[0] for m in _imports(os.path.join(here,
-                                                                   name))}
-            assert not tops & {"maskrcnn_tpu_torch", "maskrcnn_tpu", "jax",
-                               "jaxlib", "flax"}, (name, tops)
+    seen = 0
+    for dirpath, _, files in os.walk(here):
+        for name in files:
+            if name.endswith(".py"):
+                seen += 1
+                tops = {m.split(".")[0]
+                        for m in _imports(os.path.join(dirpath, name))}
+                assert not tops & {"maskrcnn_tpu_torch", "maskrcnn_tpu",
+                                   "jax", "jaxlib", "flax"}, (name, tops)
+    assert seen >= 7
 
 
 def test_no_benchmark_module_imports_jax_or_the_jax_package():

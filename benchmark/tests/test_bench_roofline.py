@@ -15,6 +15,8 @@ import torch
 
 from benchmark import roofline, trace
 from benchmark.harness import ROOT
+from benchmark.reference import backbones
+from benchmark.reference.backbones import _resnet
 from benchmark.weights import make_params
 
 
@@ -32,7 +34,7 @@ def chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("arch", ["resnet101", "mobilenetv2"])
+@pytest.mark.parametrize("arch", backbones.names())
 def test_model_flops_are_the_flop_counters(arch):
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -70,7 +72,7 @@ def test_stem_and_chains_count_as_chip_smoke_does():
     nbytes, flops, _ = roofline.stem_call(b, cfg)
     assert nbytes == cs.nbytes(images, w, bias) + got_numel * 2
     assert flops == 2.0 * b * 512 * 512 * 64 * 147
-    for chain, (hw, cin, m, cout) in zip(roofline.CHAINS,
+    for chain, (hw, cin, m, cout) in zip(_resnet.CHAINS,
                                          ((256, 64, 64, 256),
                                           (128, 512, 128, 512))):
         blocks = []
