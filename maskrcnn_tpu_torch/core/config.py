@@ -37,7 +37,9 @@ import math
 from typing import Any, Mapping, Sequence
 
 
-_VALID_ARCHITECTURES = ("resnet50", "resnet101", "mobilenetv2")
+_VALID_ARCHITECTURES = ("resnet50", "resnet101", "mobilenetv2", "vitdet_b")
+# Patch size of the ViT backbones: their input must be a multiple of it.
+_VIT_PATCH = {"vitdet_b": 16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +144,11 @@ class MaskRCNNConfig:
                 f"architecture must be one of {_VALID_ARCHITECTURES}, "
                 f"got {self.architecture!r}")
         h, w, c = self.input_image_shape
+        patch = _VIT_PATCH.get(self.architecture)
+        if patch and (h % patch or w % patch):
+            raise ValueError(
+                f"input_image_shape {self.input_image_shape} must be a "
+                f"multiple of {self.architecture}'s patch size {patch}")
         for s in self.backbone_strides:
             if h % s or w % s:
                 raise ValueError(

@@ -14,7 +14,9 @@ Keras `save_weights` layout handled:
     doubly-qualified names ``rpn_model/rpn_conv_shared/kernel:0``: the
     *penultimate* path component is the layer name;
   * `Conv2DTranspose` kernels are stored (kh, kw, out_ch, in_ch) and are
-    transposed to HWIO (kh, kw, in, out) on load (`mrcnn_mask_deconv`);
+    transposed to HWIO (kh, kw, in, out) on load (`mrcnn_mask_deconv`,
+    and ViTDet's simple-feature-pyramid deconvs `sfp_p2_deconv1`,
+    `sfp_p2_deconv2`, `sfp_p3_deconv`);
   * names with or without the ``:0`` tensor suffix.
 
 `h5py` is imported only by the `.h5` functions, which raise a clear error
@@ -30,7 +32,8 @@ import numpy as np
 import torch
 
 _BN_WEIGHTS = ("gamma", "beta", "moving_mean", "moving_variance")
-_TRANSPOSED_KERNELS = {"mrcnn_mask_deconv"}
+_TRANSPOSED_KERNELS = {"mrcnn_mask_deconv", "sfp_p2_deconv1",
+                       "sfp_p2_deconv2", "sfp_p3_deconv"}
 _RPN_LAYERS = ("rpn_conv_shared", "rpn_class_raw", "rpn_bbox_pred")
 
 

@@ -889,3 +889,41 @@ def test_gpu_dryrun_step_over_nccl(capfd):
     n = torch.cuda.device_count()
     mesh.dryrun_step(n)
     assert f"over {n} cuda ranks" in capfd.readouterr().out
+
+
+# --------------------------------------------------------------------------
+# ViTDet's biased attention (ops/attention.py)
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", ["window", "global"])
+def test_gpu_rel_pos_attention_card_route_matches_float32(block):
+    """The card route (bfloat16 SDPA on the augmented q', k') against the
+    float32 plain route on the same bfloat16-rounded q, k, v, at
+    `vitdet_b.batch8`'s shapes: 25 windows of 14x14 per image, or the
+    64x64 grid (two images: the global case is per image alike). The
+    gap is bfloat16's: rel_h and rel_w rounded into q' (2^-9 of a bias
+    up to ~4), the probabilities and the output rounded to it; the
+    largest may reach 2^-7 of the largest output, the mean stays near
+    2^-11 of it. Dropping the bias moves the output by far more."""
+    from maskrcnn_tpu_torch.ops import attention as A
+    dev = _card()
+    n, grid = (50, 14) if block == "window" else (2, 64)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((n, 12, grid * grid, 64), generator=g,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    th, tw = (torch.rand((2 * grid - 1, 64), generator=g, device=dev) * 0.3
+              - 0.15 for _ in range(2))
+    scale = 64 ** -0.5
+    got = A.rel_pos_attention(q, k, v, th, tw, (grid, grid), scale)
+    assert got.dtype == torch.bfloat16 and got.shape == v.shape
+    want = torch.cat([A._plain(q[i:i + 1], k[i:i + 1], v[i:i + 1], th, tw,
+                               (grid, grid), scale) for i in range(n)])
+    big = float(want.abs().max())
+    err = (got.float() - want).abs()
+    assert float(err.max()) <= 2 ** -7 * big, float(err.max()) / big
+    assert float(err.mean()) <= 2 ** -10 * big, float(err.mean()) / big
+    unbiased = A._plain(q[:1], k[:1], v[:1], th * 0, tw * 0, (grid, grid),
+                        scale)
+    assert float((unbiased - want[:1]).abs().mean()) > 8 * float(
+        err[:1].mean())
