@@ -30,9 +30,18 @@ Phases, each printing one JSON line, any failure ends the run non-zero
            ROIs, valid ROIs only): kernel - plain in bf16 ulps, signed,
            held to the rule of `tools/kernel_bias.py` (a lean or a larger
            error that the max-error check lets through fails the run);
-           then K1-K4 again at batch 8, the serve_probe path's shapes
-           (every forward there padded to its max batch 8), held to the
-           same tolerances (in the `kernels` line as `serve_probe_batch`)
+           then K1-K4 and EP again at batch 8, the serve_probe path's
+           shapes (every forward there padded to its max batch 8), held to
+           the same tolerances (in the `kernels` line as
+           `serve_probe_batch`)
+  EP       the conv epilogue (`csrc/conv_epilogue.cu`, replaces no TPU
+           kernel), its three forms at res3a, res4 and res5 shapes on the
+           R101 layers' constants, against its plain version (the layers'
+           op sequence) bit for bit, with `ms`, `ms_graph`, `plain_ms`,
+           the bytes bound and the kernel's device time (profiler) back
+           to back and with L2 cold (`device_ms`, `device_ms_l2_cold`;
+           `share_of_bound_l2_cold`: back-to-back calls keep a small map
+           in L2, and `ms` of so short a call times the host)
   native   the host native library (`maskrcnn_tpu_torch/native`, g++ at
            first use): which of librle, libimageio (with or without its
            libjpeg entry points) and libevalmatch loaded, the build
@@ -162,8 +171,8 @@ Phases, each printing one JSON line, any failure ends the run non-zero
            phase has the times); its JSON lines
 
 then a `kernels` line (each kernel's launches on the e2e or stream path,
-on every path in `launches_by_path`, for K1-K4 their numbers at the
-serve_probe path's batch in `serve_probe_batch`, per training step of
+on every path in `launches_by_path`, for K1-K4 and EP their numbers at
+the serve_probe path's batch in `serve_probe_batch`, per training step of
 each training configuration in `train_launches_per_step`, and for K2-K4
 the training
 Function's forward and backward times and its forward's error), the
@@ -309,6 +318,24 @@ def cuda_ms_l2_cold(fn, reps: int, warmup: int = 1,
         total += start.elapsed_time(end)
     del flush
     return total / reps
+
+
+def device_ms_l2_cold(fn, kernel: str, reps: int = 10,
+                      flush_bytes: int = 256 << 20):
+    """Device time of the kernels whose name holds `kernel` in one call of
+    fn with L2 cold: torch.profiler over `reps` calls, each after a
+    `flush_bytes` buffer is written (as in `cuda_ms_l2_cold`). The
+    kernels' own time, where a short call's CUDA events would time the
+    host's launch; None where the profiler showed none."""
+    flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+
+    def cold():
+        flush.fill_(1.0)
+        fn()
+
+    ms = kernels_per_call(cold, reps)["kernel_ms_per_call"] or {}
+    del flush
+    return sum(v for k, v in ms.items() if kernel in k) or None
 
 
 def tflops(ms: float, flops: float) -> dict:
@@ -817,6 +844,72 @@ def check_chains(dev, rng, batch, params):
     return rows
 
 
+# (row form, conv layer, shortcut layer) of one stage: after 2b (2a's form),
+# 2c of an identity block, 2c of the projection block with its shortcut
+EP_FORMS = (("after2b", "{s}a_branch2b", None),
+            ("identity", "{s}b_branch2c", None),
+            ("projection", "{s}a_branch2c", "{s}a_branch1"))
+# elementwise operations an element: bias add, BN multiply and add, ReLU;
+# the identity form adds the block input, the projection form the
+# shortcut's bias and BN and the add
+EP_OPS = {"after2b": 4, "identity": 5, "projection": 8}
+
+
+def check_conv_epilogue(dev, rng, batch, params):
+    """The conv epilogue's three forms at the layer path's shapes (res3a
+    128^2 x 128 / 512, res4 64^2 x 256 / 1024, res5 32^2 x 512 / 2048)
+    on the R101 layers' constants (`prepare`) against their plain version
+    (the layers' op sequence) on the same inputs: equal bit for bit
+    (tol 0). `bound_ms` is the bytes read and written at the HBM rate.
+    A call is shorter than its wrapper's host time, so `ms` times the host;
+    the kernel's own time is the profiler's, `device_ms` back to back
+    (small maps stay in L2) and `device_ms_l2_cold`, which the bound
+    bounds (`share_of_bound_l2_cold`)."""
+    from maskrcnn_tpu_torch.ops import conv_epilogue_cuda as ep
+    rows = []
+    for stage, hw in ((3, 128), (4, 64), (5, 32)):
+        for form, conv, short in EP_FORMS:
+            conv, short = (None if n is None else n.format(s=stage)
+                           for n in (conv, short))
+            layer = ep.prepare(params["res" + conv], params["bn" + conv])
+            shape = (batch, hw, hw, layer.scale.shape[0])
+            y, res = (torch.from_numpy(2 * rng.standard_normal(shape).astype(
+                np.float32)).to(dev).to(torch.bfloat16) for _ in range(2))
+            res = None if form == "after2b" else res
+            sc = (None if short is None else
+                  ep.prepare(params["res" + short], params["bn" + short]))
+            s3 = (None,) * 3 if sc is None else sc[1:]
+            call = lambda: ep.conv_epilogue(y, layer, res, sc)
+            plain = lambda: ep.epilogue_plain(y, *layer[1:], res, *s3)
+            got, want = call(), plain()
+            same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+            err = (got.float() - want.float()).abs().max().item()
+            ms = cuda_ms(call, 50)
+            per_call = kernels_per_call(call)
+            warm = sum(v for k, v in (per_call["kernel_ms_per_call"]
+                                      or {}).items()
+                       if "conv_epilogue_kernel" in k) or None
+            cold = device_ms_l2_cold(call, "conv_epilogue_kernel")
+            consts = nbytes(*layer[1:], *(sc[1:] if sc else ()))
+            moved = nbytes(y, got, *([] if res is None else [res])) + consts
+            flops = float(y.numel() * EP_OPS[form])
+            bnd = bound(moved, flops, F32_FLOPS)
+            rows.append(record(
+                f"EP_res{stage}_{form}", "cuda",
+                "maskrcnn_tpu_torch/csrc/conv_epilogue.cu",
+                "none (the JAX package leaves these layers to XLA)", ms,
+                cuda_ms(plain, 10), err, 0.0, bnd, None,
+                {"ms_graph": cuda_ms_graph(call), "device_ms": warm,
+                 "device_ms_l2_cold": cold,
+                 "share_of_bound_l2_cold": cold and bnd[0] / cold,
+                 "shape": list(shape), "conv": "res" + conv,
+                 "shortcut": None if short is None else "res" + short,
+                 "bit_equal": same, **per_call},
+                ok=same))
+            del y, res, got, want
+    return rows
+
+
 # --------------------------------------------------------------------------
 # forward on the card vs the CPU, and the detector end to end
 # --------------------------------------------------------------------------
@@ -854,10 +947,12 @@ KERNEL_GROUPS = (("K1 nms", ("nms_mask_kernel", "nms_walk_kernel")),
                  ("K5 roi_classifier_head", ("head_gemm_kernel",
                                              "split_sum_kernel")),
                  ("K6 roi_mask_head", ("mask_conv_kernel",
-                                       "mask_deconv_kernel")))
-E2E_KERNELS = ("nms", "roi_align", "stem", "bottleneck")
+                                       "mask_deconv_kernel")),
+                 ("EP conv_epilogue", ("conv_epilogue_kernel",)))
+E2E_KERNELS = ("nms", "roi_align", "stem", "bottleneck",
+               "conv_epilogue")
 STREAM_KERNELS = ("nms", "stem", "bottleneck", "roi_classifier_head",
-                  "roi_mask_head")
+                  "roi_mask_head", "conv_epilogue")
 
 
 def stream_forwards(stats) -> int:
@@ -1742,7 +1837,8 @@ SERVE_BODIES = (((480, 640, 3), "JPEG"), ((640, 480, 3), "PNG"),
                 ((768, 1024, 3), "JPEG"), ((300, 500, 3), "PNG"),
                 ((480, 640), "JPEG"), ((640, 480, 4), "PNG"),
                 ((1024, 768, 3), "JPEG"), ((500, 300, 3), "JPEG"))
-SERVE_KERNELS = ("nms", "roi_align", "stem", "bottleneck")
+SERVE_KERNELS = ("nms", "roi_align", "stem", "bottleneck",
+                 "conv_epilogue")
 
 
 def serve(dev, seed, batch, base, rounds=2):
@@ -2493,7 +2589,8 @@ def mnv2(dev, seed, batch, base, frames=8, timed_steps=3):
 
 
 EXPORT_TOL = 1e-4
-EXPORT_KERNELS = ("nms", "roi_align", "stem", "bottleneck")
+EXPORT_KERNELS = ("nms", "roi_align", "stem", "bottleneck",
+                  "conv_epilogue")
 # loads the program in a new process (only the ops registered, as a user
 # would) and runs it on the saved image: outputs and launch counts to files
 FRESH_PROCESS = """
@@ -2957,8 +3054,9 @@ def bench(batch):
 
 
 def serve_probe_checks(dev, rng, batch, params) -> dict:
-    """K1-K4 held against their plain versions at `batch`, the shapes the
-    serve_probe path gives them; each fails the run as at `--batch`.
+    """K1-K4 and the conv epilogue held against their plain versions at
+    `batch`, the shapes the serve_probe path gives them; each fails the run
+    as at `--batch`.
     -> {row name: its numbers at `batch`}."""
     pyramid = [torch.from_numpy(rng.standard_normal(
         (batch, s, s, 256)).astype(np.float32)).to(dev)
@@ -2968,10 +3066,12 @@ def serve_probe_checks(dev, rng, batch, params) -> dict:
     del pyramid
     rows += check_stem(dev, rng, batch, params)
     rows += check_chains(dev, rng, batch, params)
+    rows += check_conv_epilogue(dev, rng, batch, params)
     torch.cuda.empty_cache()
     return {r["name"]: {"batch": batch, **{k: r[k] for k in (
         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "bias", "bias_by_block", "ok") if k in r}}
+        "library_ms", "bias", "bias_by_block", "ms_graph", "device_ms",
+        "device_ms_l2_cold", "share_of_bound_l2_cold", "ok") if k in r}}
         for r in rows}
 
 
@@ -2980,7 +3080,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="the device, build and K1..K6 phases, then a "
+                    help="the device, build, K1..K6 and EP phases, then a "
                          "kernels line without launches and no result "
                          "line: two kernel builds compared in one call")
     args = ap.parse_args()
@@ -3021,7 +3121,8 @@ def main() -> int:
     del pyramid
     rows += check_stem(dev, rng, args.batch, params)
     rows += check_chains(dev, rng, args.batch, params)
-    # K1-K4 again at the serve_probe path's batch, held the same way
+    rows += check_conv_epilogue(dev, rng, args.batch, params)
+    # K1-K4 and EP again at the serve_probe path's batch, held the same way
     at_probe = serve_probe_checks(dev, rng, SERVE_PROBE_MAX_BATCH, params)
     del params
     torch.cuda.empty_cache()
@@ -3069,7 +3170,8 @@ def main() -> int:
     by_path.update(bench(args.batch))
 
     family = {"K1": "nms", "K2": "roi_align", "K3": "stem", "K4": "bottleneck",
-              "K5": "roi_classifier_head", "K6": "roi_mask_head"}
+              "K5": "roi_classifier_head", "K6": "roi_mask_head",
+              "EP": "conv_epilogue"}
     for row in rows:
         key = family[row["name"][:2]]
         row["launches"] = (launches_stream if key in ("roi_classifier_head",

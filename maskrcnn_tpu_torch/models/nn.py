@@ -25,6 +25,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 Params = dict[str, Any]
+BN_EPS = 1e-3  # Keras BatchNormalization's default
 
 
 # ----------------------------------------------------------------------------
@@ -75,10 +76,24 @@ def conv2d(x: torch.Tensor, p: Params, *, stride=1, padding="SAME",
            dtype=torch.bfloat16) -> torch.Tensor:
     """NHWC conv with an HWIO kernel. `padding` is "SAME", "VALID", or
     explicit [(lo, hi), (lo, hi)]."""
+    y = conv2d_nobias(x, conv_weight(p["kernel"], dtype), stride=stride,
+                      padding=padding, dtype=dtype)
+    return (y + p["bias"].to(dtype)).to(dtype)
+
+
+def conv_weight(kernel: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """An HWIO kernel as the OIHW weight in `dtype` that `F.conv2d` takes
+    (a view of the cast)."""
+    return kernel.to(dtype).permute(3, 2, 0, 1)
+
+
+def conv2d_nobias(x: torch.Tensor, w: torch.Tensor, *, stride=1,
+                  padding="SAME", dtype=torch.bfloat16) -> torch.Tensor:
+    """`conv2d`'s convolution without the bias: an OIHW kernel `w` already
+    in `dtype`, the NHWC view of the raw result (rounded to `dtype`)."""
     if isinstance(stride, int):
         stride = (stride, stride)
-    k = p["kernel"]
-    kh, kw = k.shape[0], k.shape[1]
+    kh, kw = w.shape[2], w.shape[3]
     if padding == "SAME":
         pads = [_same_pads(x.shape[1], kh, stride[0]),
                 _same_pads(x.shape[2], kw, stride[1])]
@@ -87,14 +102,12 @@ def conv2d(x: torch.Tensor, p: Params, *, stride=1, padding="SAME",
     else:
         pads = [tuple(pp) for pp in padding]
     xc = x.to(dtype).permute(0, 3, 1, 2)
-    wc = k.to(dtype).permute(3, 2, 0, 1)
     (t, bt), (l, r) = pads
     if t == bt and l == r:
-        y = F.conv2d(xc, wc, stride=stride, padding=(t, l))
+        y = F.conv2d(xc, w, stride=stride, padding=(t, l))
     else:
-        y = F.conv2d(F.pad(xc, (l, r, t, bt)), wc, stride=stride)
-    y = y.permute(0, 2, 3, 1)
-    return (y + p["bias"].to(dtype)).to(dtype)
+        y = F.conv2d(F.pad(xc, (l, r, t, bt)), w, stride=stride)
+    return y.permute(0, 2, 3, 1)
 
 
 def conv2d_transpose(x: torch.Tensor, p: Params, *, stride=2,
@@ -132,7 +145,20 @@ class _AllSum(torch.autograd.Function):
         return _AllSum.apply(grad, ctx.group), None
 
 
-def batch_norm(x: torch.Tensor, p: Params, *, eps: float = 1e-3,
+def bn_scale_shift(p: Params, mean: torch.Tensor | None = None,
+                   var: torch.Tensor | None = None, *,
+                   eps: float = BN_EPS) -> tuple[torch.Tensor, torch.Tensor]:
+    """BN's float32 per-channel scale, gamma * rsqrt(var + eps), and shift,
+    beta - mean * scale: with the moving statistics unless `mean` and
+    `var` are given."""
+    if mean is None:
+        mean = p["moving_mean"].float()
+        var = p["moving_variance"].float()
+    scale = p["gamma"].float() * torch.rsqrt(var + eps)
+    return scale, p["beta"].float() - mean * scale
+
+
+def batch_norm(x: torch.Tensor, p: Params, *, eps: float = BN_EPS,
                use_batch_stats: bool = False, collect: dict | None = None,
                name: str | None = None, group=None) -> torch.Tensor:
     """BatchNormalization (Keras default eps 1e-3), in float32.
@@ -163,13 +189,8 @@ def batch_norm(x: torch.Tensor, p: Params, *, eps: float = 1e-3,
             var = xf.var(dim=axes, unbiased=False)
         if collect is not None:
             collect[name] = (mean, var)
-    if use_batch_stats:
-        use_mean, use_var = mean, var
-    else:
-        use_mean = p["moving_mean"].float()
-        use_var = p["moving_variance"].float()
-    scale = p["gamma"].float() * torch.rsqrt(use_var + eps)
-    shift = p["beta"].float() - use_mean * scale
+    scale, shift = (bn_scale_shift(p, mean, var, eps=eps) if use_batch_stats
+                    else bn_scale_shift(p, eps=eps))
     return (xf * scale + shift).to(x.dtype)
 
 

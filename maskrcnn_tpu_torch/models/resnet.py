@@ -10,7 +10,11 @@
 On the card with bf16 compute and the stored BN statistics the stem runs
 as kernel K3 and the chains res2 a-c and res3 b-d as kernel K4, under the
 gates of the JAX package (`stem_supported` / `chain_supported`, device test
-`is_cuda`). Everything else runs layer by layer (`models/nn.py`).
+`is_cuda`). Everything else runs layer by layer (`models/nn.py`); at
+inference on the card each of those convs is finished by one
+`conv_epilogue` pass (`ops/conv_epilogue_cuda.py`: bias, BN, shortcut and
+ReLU, bit-equal to the layers), with its constants prepared once per
+parameter set.
 
 Training (`inference=False`) takes the kernels only with frozen BN
 (`bn_ctx` None) and `train_fused_kernels`, and then only through their
@@ -25,7 +29,8 @@ from __future__ import annotations
 import torch
 
 from maskrcnn_tpu_torch.models import nn
-from maskrcnn_tpu_torch.ops import bottleneck_cuda, stem_cuda
+from maskrcnn_tpu_torch.ops import (bottleneck_cuda, conv_epilogue_cuda,
+                                    stem_cuda)
 
 _BLOCK_COUNTS = {"resnet50": 5, "resnet101": 22}
 
@@ -92,6 +97,32 @@ def _bottleneck(x, params, stage, block, is_conv, stride, dtype,
     return nn.relu(y + sc)
 
 
+def _bottleneck_epilogue(x, params, stage, block, is_conv, stride):
+    """`_bottleneck` at inference with the stored BN statistics in bf16,
+    bit-equal to it: each conv (no bias) finished by one `conv_epilogue`
+    pass; the shortcut conv's own epilogue goes into 2c's pass."""
+    base = f"res{stage}{block}_branch"
+    bnb = f"bn{stage}{block}_branch"
+
+    def layer(branch):
+        return conv_epilogue_cuda.prepare(params[base + branch],
+                                          params[bnb + branch])
+
+    def conv(t, consts, **kw):
+        return nn.conv2d_nobias(t, consts.weight, **kw).contiguous()
+
+    ep = conv_epilogue_cuda.conv_epilogue
+    a, b, c = layer("2a"), layer("2b"), layer("2c")
+    y = ep(conv(x, a, stride=stride, padding="VALID"), a)
+    y = ep(conv(y, b, padding="SAME"), b)
+    y = conv(y, c, padding="VALID")
+    if not is_conv:
+        return ep(y, c, residual=x)
+    s = layer("1")
+    return ep(y, c, residual=conv(x, s, stride=stride, padding="VALID"),
+              shortcut=s)
+
+
 def _stem_layers(params, images, dtype, bn_ctx=None):
     """ZeroPadding2D(3) + 7x7/2 valid conv + BN + ReLU + 3x3/2 SAME maxpool."""
     x = nn.conv2d(images.to(dtype), params["conv1"], stride=2,
@@ -123,8 +154,11 @@ def apply_resnet(params, images: torch.Tensor,
     `bn_ctx` (`nn.bn_apply`) None uses the stored BN statistics. The
     kernels engage where their folded-BN math is exact (bf16, `bn_ctx`
     None, on the card) and, with `inference=False`, only when
-    `train_fused_kernels` is set, through their autograd Functions."""
+    `train_fused_kernels` is set, through their autograd Functions. The
+    conv epilogue engages at inference only, under the same conditions."""
     kernels = bn_ctx is None and (inference or train_fused_kernels)
+    epilogue = (bn_ctx is None and inference
+                and conv_epilogue_cuda.epilogue_supported(images, dtype))
     if kernels and stem_cuda.stem_supported(images, dtype):
         x = (stem_cuda.apply_stem(params, images) if inference
              else stem_cuda.stem_fused_diff(params, images))
@@ -144,6 +178,8 @@ def apply_resnet(params, images: torch.Tensor,
                  if inference else bottleneck_cuda.chain_fused_diff(
                      params, stage, letters, x, blocks))
             skip.update((stage, letter) for letter in letters)
+        elif epilogue:
+            x = _bottleneck_epilogue(x, params, stage, block, is_conv, stride)
         else:
             x = _bottleneck(x, params, stage, block, is_conv, stride, dtype,
                             bn_ctx)

@@ -19,8 +19,11 @@ import torch
 
 from maskrcnn_tpu_torch.io.weights import params_from_numpy
 from maskrcnn_tpu_torch.models import heads as pt_heads
-from maskrcnn_tpu_torch.ops import (bottleneck_cuda, cuda_lib, nms_cuda,
-                                    roi_align, roi_align_cuda, stem_cuda)
+from maskrcnn_tpu_torch.models import nn as pt_nn
+from maskrcnn_tpu_torch.models import resnet as pt_resnet
+from maskrcnn_tpu_torch.ops import (bottleneck_cuda, conv_epilogue_cuda,
+                                    cuda_lib, nms_cuda, roi_align,
+                                    roi_align_cuda, stem_cuda)
 from maskrcnn_tpu_torch.ops.nms import _compact
 
 
@@ -295,6 +298,78 @@ def _chain_case(seed=0, stage=2, cin=64, mid=64, cout=256, hw=(32, 32)):
     x = torch.from_numpy(rng.standard_normal((2, *hw, cin))
                          .astype(np.float32)).to(torch.bfloat16)
     return x, blocks
+
+
+def _epilogue_case(seed=0, b=2, side=8, c=64, form="projection",
+                   dev="cpu"):
+    """A raw bf16 conv output y (b, side, side, c) with -0.0 and +-inf among
+    its values, its layer's constants (`conv_epilogue_cuda.prepare` of a
+    1x1 conv with a bias and a BN layer drawn from the seed), for the
+    identity and projection forms a residual (the block input, or the raw
+    shortcut output with -0.0 among its values) and for the projection the
+    shortcut's constants: (y, layer, residual, shortcut, params), params
+    the conv and BN dicts ("conv", "bn", "sconv", "sbn") they came from."""
+    rng = np.random.default_rng(seed)
+
+    def raw():
+        v = (rng.standard_normal((b, side, side, c)) * 2).astype(np.float32)
+        v.reshape(-1)[rng.choice(v.size, 3 + v.size // 1000,
+                                 replace=False)] = -0.0
+        return torch.from_numpy(v).to(dev).to(torch.bfloat16)
+
+    def layer(prefix):
+        params[prefix + "conv"] = {k: torch.from_numpy(v).to(dev) for k, v
+                                   in rand_conv(rng, 1, 1, 8, c).items()}
+        params[prefix + "bn"] = {k: torch.from_numpy(v).to(dev)
+                                 for k, v in rand_bn(rng, c).items()}
+        return conv_epilogue_cuda.prepare(params[prefix + "conv"],
+                                          params[prefix + "bn"])
+
+    params = {}
+    y = raw()
+    y.view(-1)[:4] = torch.tensor([float("inf"), -float("inf")] * 2)
+    lc = layer("")
+    residual = None if form == "bn_relu" else raw()
+    shortcut = layer("s") if form == "projection" else None
+    return y, lc, residual, shortcut, params
+
+
+def layer_sequence(y, params, residual=None):
+    """The layers' ops on a raw conv output as `models/resnet.py::
+    _bottleneck` runs them: `nn.conv2d`'s bias add, `nn.batch_norm`,
+    `nn.relu`, the residual add (the shortcut conv's output finished by
+    its own bias add and BN first)."""
+    bf16 = torch.bfloat16
+
+    def bias_bn(t, conv, bn):
+        return pt_nn.batch_norm((t + conv["bias"].to(bf16)).to(bf16), bn)
+
+    t = bias_bn(y, params["conv"], params["bn"])
+    if residual is None:
+        return pt_nn.relu(t)
+    if "sconv" in params:
+        residual = bias_bn(residual, params["sconv"], params["sbn"])
+    return pt_nn.relu(t + residual)
+
+
+def resnet_case(seed=3, arch="resnet50", side=64, b=1, dev="cpu"):
+    """`init_resnet` params with every BN and conv bias drawn from the
+    seed (`rand_bn`; init zeroes the biases) and (b, side, side, 3)
+    mean-subtracted images, on `dev`."""
+    rng = np.random.default_rng(seed)
+    params = pt_resnet.init_resnet(torch.Generator().manual_seed(seed), arch)
+    for name, p in params.items():
+        if name.startswith("bn"):
+            p.update({k: torch.from_numpy(v) for k, v
+                      in rand_bn(rng, p["gamma"].shape[0]).items()})
+        else:
+            p["bias"] = torch.from_numpy((rng.standard_normal(
+                p["bias"].shape[0]) * 0.1).astype(np.float32))
+    params = {k: {w: v.to(dev) for w, v in d.items()}
+              for k, d in params.items()}
+    images = torch.from_numpy(rng.uniform(-120, 130, (b, side, side, 3))
+                              .astype(np.float32)).to(dev)
+    return params, images
 
 
 @pytest.mark.gpu
@@ -661,6 +736,7 @@ def test_gpu_full_width_train_step(frozen):
         assert launches["stem"] == 1 and launches["bottleneck"] == 6
     else:
         assert launches["stem"] == 0 and launches["bottleneck"] == 0
+    assert launches["conv_epilogue"] == 0
     for layer, ws in state.params.items():
         if "moving_variance" not in ws:
             continue
@@ -682,6 +758,112 @@ def test_gpu_full_width_train_step(frozen):
                 # the moving statistics
                 if frozen or w.startswith("moving"):
                     assert torch.equal(new.params[layer][w], v), (layer, w)
+
+
+# --------------------------------------------------------------------------
+# the conv epilogue of ResNet's layer path
+# --------------------------------------------------------------------------
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["bn_relu", "identity", "projection"])
+@pytest.mark.parametrize("b,side,mid,out", [(1, 128, 128, 512),
+                                            (2, 64, 256, 1024),
+                                            (2, 32, 512, 2048)],
+                         ids=["res3a", "res4", "res5"])
+def test_gpu_conv_epilogue_bit_equal_to_layers(form, b, side, mid, out):
+    """Each form of the pass on the card equals the layers' op sequence on
+    the same raw conv output bit for bit (-0.0 and infinities among the
+    inputs), at the shapes of res3a, res4 and res5 (2a / 2b outputs `mid`
+    wide, 2c and the shortcut `out`), in one launch."""
+    dev = _card()
+    c = mid if form == "bn_relu" else out
+    y, layer, res, short, params = _epilogue_case(b=b, side=side, c=c,
+                                                  form=form, dev=dev)
+    cuda_lib.reset_launches()
+    got = conv_epilogue_cuda.conv_epilogue(y, layer, res, short)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["conv_epilogue"] == 1
+    want = layer_sequence(y, params, res)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert torch.equal(_bits(got), _bits(want))
+    s = (None,) * 3 if short is None else short[1:]
+    plain = conv_epilogue_cuda.epilogue_plain(y, *layer[1:], res, *s)
+    assert torch.equal(_bits(got), _bits(plain))
+
+
+@pytest.mark.gpu
+def test_gpu_conv_epilogue_refuses_what_it_cannot_take():
+    """The wrapper raises on channels that are not a multiple of 8 and on
+    a non-contiguous input, the launch on an input off a 16-byte
+    boundary: no fallback on the card."""
+    dev = _card()
+    y, layer, res, short, _ = _epilogue_case(c=12, dev=dev)
+    with pytest.raises(ValueError, match="channels % 8"):
+        conv_epilogue_cuda.conv_epilogue(y, layer, res, short)
+    y, layer, res, short, _ = _epilogue_case(c=64, dev=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_epilogue_cuda.conv_epilogue(y.transpose(1, 2), layer, res,
+                                         short)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_epilogue_cuda.conv_epilogue(y, layer, res.transpose(1, 2),
+                                         short)
+    one = y[:1]
+    off = y.reshape(-1)[1:1 + one.numel()].view(one.shape)  # 2 bytes off
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        conv_epilogue_cuda.conv_epilogue(off, layer, res[:1], short)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,passes", [("resnet101", 81),
+                                         ("resnet50", 30)])
+def test_gpu_resnet_epilogue_path_bit_equal_to_layers(monkeypatch, arch,
+                                                      passes):
+    """The backbone (C2-C5) on the card at 256^2, batch 2, with the
+    epilogue pass finishing every layer-path conv (one launch a conv but
+    the shortcut's: 81 for R101, 30 for R50) equals the layers bit for
+    bit, K3 and K4 running in both."""
+    dev = _card()
+    params, images = resnet_case(arch=arch, side=256, b=2, dev=dev)
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        got = pt_resnet.apply_resnet(params, images, arch)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    assert launches["conv_epilogue"] == passes
+    assert launches["stem"] == 1 and launches["bottleneck"] == 6
+    monkeypatch.setattr(conv_epilogue_cuda, "epilogue_supported",
+                        lambda x, dtype: False)
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        want = pt_resnet.apply_resnet(params, images, arch)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["conv_epilogue"] == 0
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,passes", [("resnet101", 81), ("resnet50", 30),
+                                         ("mobilenetv2", 0),
+                                         ("vitdet_b", 0)])
+def test_gpu_forward_conv_epilogue_launches(arch, passes):
+    """One bf16 forward on the card launches the pass once a ResNet
+    layer-path conv but the shortcut's; MobileNetV2 and ViTDet never."""
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    dev = _card()
+    cfg = _tiny(architecture=arch)
+    params = M.init_mask_rcnn(torch.Generator().manual_seed(0), cfg)
+    images = torch.rand((1, 128, 128, 3),
+                        generator=torch.Generator().manual_seed(1)) * 255
+    cuda_lib.reset_launches()
+    M.forward(params, images, cfg, device=dev)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["conv_epilogue"] == passes
 
 
 # --------------------------------------------------------------------------
@@ -715,6 +897,8 @@ def _gpu_op_cases(dev):
     x, blocks = _chain_case()
     x = x.to(dev)
     blocks = [{k: v.to(dev) for k, v in b.items()} for b in blocks]
+    y, layer, res, short, _ = _epilogue_case(dev=dev)
+    ep = conv_epilogue_cuda
     rac = roi_align_cuda
     return {
         "nms_keep": ((boxes, valid, 0.7, 1000),
@@ -737,18 +921,24 @@ def _gpu_op_cases(dev):
             (x, bottleneck_cuda._flatten_blocks(blocks)),
             lambda: bottleneck_cuda.fused_bottleneck_chain(x, blocks),
             lambda: bottleneck_cuda.chain_plain(x, blocks), 0.05, 3),
+        "conv_epilogue": (
+            (y, *layer[1:], res, *short[1:]),
+            lambda: ep.conv_epilogue(y, layer, res, short),
+            lambda: ep.epilogue_plain(y, *layer[1:], res, *short[1:]),
+            0.0, 1),
     }
 
 
 OP_FAMILY = {"nms_keep": "nms", "bottleneck_chain": "bottleneck"}
 OPS = ("nms_keep", "roi_align", "roi_classifier_head", "roi_mask_head",
-       "stem", "bottleneck_chain")
+       "stem", "bottleneck_chain", "conv_epilogue")
 PLAINS = {"nms_keep": (nms_cuda, "nms_keep_plain"),
           "roi_align": (roi_align_cuda, "roi_align_plain"),
           "roi_classifier_head": (roi_align_cuda, "classifier_head_plain"),
           "roi_mask_head": (roi_align_cuda, "mask_head_plain"),
           "stem": (stem_cuda, "stem_plain"),
-          "bottleneck_chain": (bottleneck_cuda, "chain_plain")}
+          "bottleneck_chain": (bottleneck_cuda, "chain_plain"),
+          "conv_epilogue": (conv_epilogue_cuda, "epilogue_plain")}
 
 
 @pytest.mark.gpu
@@ -765,7 +955,7 @@ def test_gpu_custom_op_launches_kernel_and_matches_plain(name):
     assert cuda_lib.launches[OP_FAMILY.get(name, name)] == launches
     want = plain()
     assert got.shape == want.shape and got.dtype == want.dtype
-    if name == "nms_keep":
+    if name in ("nms_keep", "conv_epilogue"):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got.float(), want.float(), rtol=0,
@@ -825,6 +1015,7 @@ def test_gpu_mobilenet_forward_matches_cpu(no_tf32):
     launches = dict(cuda_lib.launches)
     assert launches["nms"] == 2 and launches["roi_align"] == 2
     assert launches["stem"] == launches["bottleneck"] == 0
+    assert launches["conv_epilogue"] == 0
     np.testing.assert_array_equal(got["roi_valid"], want["roi_valid"])
     np.testing.assert_array_equal(got["valid"], want["valid"])
     for k in ("rois", "detections", "masks"):

@@ -17,11 +17,12 @@ import maskrcnn_tpu_torch
 from maskrcnn_tpu_torch.core.config import tiny_test_config
 from maskrcnn_tpu_torch.models import heads as pt_heads
 from maskrcnn_tpu_torch.models import mask_rcnn as pt_model
-from maskrcnn_tpu_torch.ops import (bottleneck_cuda, cuda_lib, nms_cuda,
-                                    roi_align, roi_align_cuda, stem_cuda)
+from maskrcnn_tpu_torch.ops import (bottleneck_cuda, conv_epilogue_cuda,
+                                    cuda_lib, nms_cuda, roi_align,
+                                    roi_align_cuda, stem_cuda)
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
-from tests.test_torch_gpu import (_chain_case, _head_case, _roi_case,
-                                  clustered_boxes, stem_params)
+from tests.test_torch_gpu import (_chain_case, _epilogue_case, _head_case,
+                                  _roi_case, clustered_boxes, stem_params)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(maskrcnn_tpu_torch.__file__)
@@ -177,6 +178,7 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
 def test_kernel_gates_stay_off_on_cpu():
     x = torch.zeros((1, 128, 128, 3))
     assert not stem_cuda.stem_supported(x, torch.bfloat16)
+    assert not conv_epilogue_cuda.epilogue_supported(x, torch.bfloat16)
     blocks = [{"w1": torch.zeros(64, 64), "w3": torch.zeros(64, 256),
                "ws": torch.zeros(64, 256)}]
     assert not bottleneck_cuda.chain_supported(
@@ -236,9 +238,12 @@ def test_wrappers_take_plain_version_on_cpu():
     feats, prep, n, mask, ids = _head_case(c=32, n=6, crop=14)
     mk = roi_align_cuda.roi_mask_head(feats, *prep, n, mask, ids)
     assert mk.shape == (12, 28, 28) and mk.dtype == torch.float32
+    y, layer, res, short, _ = _epilogue_case()
+    e = conv_epilogue_cuda.conv_epilogue(y, layer, res, short)
+    assert e.shape == y.shape and e.dtype == torch.bfloat16
     assert set(cuda_lib.launches) == {"nms", "roi_align", "stem",
                                       "bottleneck", "roi_classifier_head",
-                                      "roi_mask_head"}
+                                      "roi_mask_head", "conv_epilogue"}
     assert not any(cuda_lib.launches.values())
 
 
@@ -295,6 +300,7 @@ def _op_cases():
     images = torch.from_numpy(rng.uniform(-120, 130, (1, 64, 64, 3))
                               .astype(np.float32))
     x, blocks = _chain_case()
+    y, layer, res, short, _ = _epilogue_case()
     hfeats, hprep, hn, head, _ = _head_case(c=32, n=6)
     mfeats, mprep, mn, mask, ids = _head_case(c=32, n=6, crop=14)
     rac = roi_align_cuda
@@ -321,11 +327,16 @@ def _op_cases():
             lambda: bottleneck_cuda.fused_bottleneck_chain(x, blocks),
             lambda: bottleneck_cuda.chain_plain(x, blocks),
             (x, bottleneck_cuda._flatten_blocks(blocks))),
+        "conv_epilogue": (
+            lambda: conv_epilogue_cuda.conv_epilogue(y, layer, res, short),
+            lambda: conv_epilogue_cuda.epilogue_plain(y, *layer[1:], res,
+                                                      *short[1:]),
+            (y, *layer[1:], res, *short[1:])),
     }
 
 
 OPS = ("nms_keep", "roi_align", "roi_classifier_head", "roi_mask_head",
-       "stem", "bottleneck_chain")
+       "stem", "bottleneck_chain", "conv_epilogue")
 
 
 @pytest.mark.parametrize("name", OPS)
