@@ -20,7 +20,8 @@ from maskrcnn_tpu.ops.bottleneck_pallas import (
 from maskrcnn_tpu_torch.io.weights import params_from_numpy
 from maskrcnn_tpu_torch.models import resnet as pt_resnet
 from maskrcnn_tpu_torch.ops import bottleneck_cuda, stem_cuda
-from tests.test_torch_gpu import stage_params, stem_params
+from tests.torch_support import stage_params, stem_params
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 
 def jax_tree(params):

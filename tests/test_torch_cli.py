@@ -33,7 +33,8 @@ from maskrcnn_tpu_torch.evalkit import mask_rle
 from maskrcnn_tpu_torch.io import weights as pt_weights
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
 from maskrcnn_tpu_torch.tools import bench
-from tests.test_torch_serve import port_params
+from tests.torch_support import port_params
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 CONFIG = pt_tiny().replace(num_classes=2, compute_dtype="float32",
                            detection_score_threshold=0.0)

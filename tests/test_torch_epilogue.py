@@ -15,7 +15,8 @@ from maskrcnn_tpu_torch.models import nn
 from maskrcnn_tpu_torch.models import resnet
 from maskrcnn_tpu_torch.ops import conv_epilogue_cuda as ep
 from maskrcnn_tpu_torch.ops import cuda_lib
-from tests.test_torch_gpu import rand_bn, rand_conv, resnet_case
+from tests.torch_support import rand_bn, rand_conv, resnet_case
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 BF16 = torch.bfloat16
 

@@ -27,6 +27,7 @@ from maskrcnn_tpu_torch.evalkit import results as pt_results
 from maskrcnn_tpu_torch.evalkit.coco import COCODataset as PtDataset
 from maskrcnn_tpu_torch.pipeline import detector as pt_det
 from maskrcnn_tpu_torch.pipeline.preprocess import compute_window
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

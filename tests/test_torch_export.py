@@ -22,22 +22,12 @@ from maskrcnn_tpu_torch.core.config import tiny_test_config as pt_tiny
 from maskrcnn_tpu_torch.io import export
 from maskrcnn_tpu_torch.io.weights import params_from_numpy
 from maskrcnn_tpu_torch.models import mask_rcnn as pt_model
-from tests.test_torch_mobilenet import jit_live_bn_params
-from tests.test_torch_model import OVERRIDES, TOL
+from tests.torch_support import (OVERRIDES, TOL, jit_live_bn_params,
+                                 one_thread_env)
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, PASTE = 2, 64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and these tests' many small ops slow by 10-20x when each one
-    waits on threads the other workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +101,6 @@ def test_program_loads_in_a_fresh_process(exported):
     np.save(os.path.join(out_dir, "images.npy"), images)
     code = (
         "import sys, numpy as np, torch\n"
-        "torch.set_num_threads(1)\n"
         "d = sys.argv[1]\n"
         "try:\n"
         "    torch.export.load(d + '/model.pt2')\n"
@@ -127,7 +116,8 @@ def test_program_loads_in_a_fresh_process(exported):
         "print(sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'maskrcnn_tpu')))\n")
     run = subprocess.run([sys.executable, "-c", code, out_dir], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         env=one_thread_env(), capture_output=True,
+                         text=True, timeout=300)
     assert run.returncode == 0, run.stderr
     assert run.stdout.split("\n")[:2] == ["refused", "[]"], run.stdout
     assert "torch.ops.maskrcnn_tpu_torch.nms_keep" in run.stderr

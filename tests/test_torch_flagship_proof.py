@@ -16,6 +16,7 @@ import torch
 
 from maskrcnn_tpu_torch.evalkit import mask_rle
 from maskrcnn_tpu_torch.tools import flagship_proof as pt_fp
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 from tools import flagship_proof as jax_fp
 
 # the keys of the JAX tool's report (`tools/flagship_proof.py::main`)
@@ -30,17 +31,6 @@ def tiny(steps=2):
     return ["--tiny", "--arch", "resnet50", "--image-size", "128",
             "--steps", str(steps), "--batch", "1", "--train-images", "2",
             "--val-images", "1"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and these tests' many small ops slow by 10-50x when each one
-    waits on threads the other workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -9,22 +9,24 @@ toolkit:
 
     python3 -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Inputs are made with numpy from a seed. `nms_case` also feeds the CPU
-tests that hold the plain NMS against the JAX package
-(`tests/test_torch_ops.py`)."""
+Inputs are made with numpy from a seed, by the cases of
+`tests/torch_support.py`, which the CPU tests share. This file alone of
+the port's tests keeps torch's threads: it runs alone on the card."""
 
 import numpy as np
 import pytest
 import torch
 
-from maskrcnn_tpu_torch.io.weights import params_from_numpy
-from maskrcnn_tpu_torch.models import heads as pt_heads
 from maskrcnn_tpu_torch.models import nn as pt_nn
 from maskrcnn_tpu_torch.models import resnet as pt_resnet
 from maskrcnn_tpu_torch.ops import (bottleneck_cuda, conv_epilogue_cuda,
                                     cuda_lib, nms_cuda, roi_align,
                                     roi_align_cuda, stem_cuda)
 from maskrcnn_tpu_torch.ops.nms import _compact
+from tests.torch_support import (EDGE_ROIS, NMS_KINDS, chain_case,
+                                 epilogue_case, head_case, live_bn, nms_case,
+                                 resnet_case, roi_case, stage_params,
+                                 stem_params)
 
 
 def _card():
@@ -32,116 +34,6 @@ def _card():
         pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
     cuda_lib.load()
     return torch.device("cuda")
-
-
-# --------------------------------------------------------------------------
-# inputs
-# --------------------------------------------------------------------------
-
-def rand_bn(rng, c):
-    return {"gamma": rng.uniform(0.5, 1.5, c).astype(np.float32),
-            "beta": rng.uniform(-0.3, 0.3, c).astype(np.float32),
-            "moving_mean": rng.uniform(-0.2, 0.2, c).astype(np.float32),
-            "moving_variance": rng.uniform(0.5, 2.0, c).astype(np.float32)}
-
-
-def rand_conv(rng, kh, kw, cin, cout, scale=None):
-    scale = scale or np.sqrt(2.0 / (kh * kw * cin))
-    return {"kernel": (rng.standard_normal((kh, kw, cin, cout)) * scale
-                       ).astype(np.float32),
-            "bias": (rng.standard_normal(cout) * 0.1).astype(np.float32)}
-
-
-def stage_params(rng, stage, cin, mid, cout, letters, proj):
-    params = {}
-    c = cin
-    for i, letter in enumerate(letters):
-        base, bnb = f"res{stage}{letter}_branch", f"bn{stage}{letter}_branch"
-        params[base + "2a"] = rand_conv(rng, 1, 1, c, mid)
-        params[bnb + "2a"] = rand_bn(rng, mid)
-        params[base + "2b"] = rand_conv(rng, 3, 3, mid, mid)
-        params[bnb + "2b"] = rand_bn(rng, mid)
-        params[base + "2c"] = rand_conv(rng, 1, 1, mid, cout)
-        params[bnb + "2c"] = rand_bn(rng, cout)
-        if i == 0 and proj:
-            params[base + "1"] = rand_conv(rng, 1, 1, c, cout)
-            params[bnb + "1"] = rand_bn(rng, cout)
-        c = cout
-    return params
-
-
-def stem_params(rng):
-    return {"conv1": rand_conv(rng, 7, 7, 3, 64, scale=0.05),
-            "bn_conv1": rand_bn(rng, 64)}
-
-
-def clustered_boxes(rng, n):
-    """Score-sorted boxes in clusters (heavy suppression at either IoU),
-    with zero-area rows and flagged-invalid rows mixed in."""
-    centers = rng.uniform(0.1, 0.9, size=(max(n // 12, 1), 2))
-    pick = centers[rng.integers(0, len(centers), n)]
-    half = rng.uniform(0.02, 0.12, size=(n, 2))
-    jitter = rng.normal(0, 0.015, size=(n, 2))
-    yx1 = np.clip(pick + jitter - half, 0, 1)
-    yx2 = np.clip(pick + jitter + half, 0, 1)
-    b = np.concatenate([yx1, yx2], axis=1).astype(np.float32)
-    b[rng.choice(n, n // 10, replace=False)] = 0.0
-    valid = rng.uniform(size=n) > 0.1
-    return b, valid
-
-
-NMS_KINDS = ("clustered", "stop_mid_chunk", "identical", "zero_area",
-             "holes", "ulp_pairs", "classes")
-
-
-def nms_case(kind, n, seed=0):
-    """(boxes (n, 4) float32, valid (n,) bool, iou threshold, max_out) for
-    one of NMS_KINDS:
-      clustered       clusters with zero-area and invalid rows, IoU 0.7
-      stop_mid_chunk  the same, max_out reached inside a 64-box chunk
-      identical       every box the same: only the first is kept
-      zero_area       every other box has zero height (never kept, never
-                      suppresses)
-      holes           every third candidate flag off
-      ulp_pairs       disjoint pairs whose second box covers float32(0.7)
-                      of the first, or one ulp less or more: IoU at the
-                      threshold 0.7 up to the test's own rounding
-      classes         class-offset boxes (class c shifted by 2c) at IoU 0.3,
-                      max_out 100 (the detection stage)"""
-    rng = np.random.default_rng(seed + n)
-    t, max_out = 0.7, max(n // 6, 4)
-    if kind in ("clustered", "stop_mid_chunk", "holes", "zero_area"):
-        boxes, valid = clustered_boxes(rng, n)
-        if kind == "stop_mid_chunk":
-            max_out = min(37, n // 4)
-        elif kind == "holes":
-            valid = np.ones(n, bool)
-            valid[::3] = False
-        elif kind == "zero_area":
-            boxes[1::2, 2] = boxes[1::2, 0]
-    elif kind == "identical":
-        boxes = np.tile(np.float32([[0.2, 0.3, 0.6, 0.5]]), (n, 1))
-        valid = np.ones(n, bool)
-    elif kind == "ulp_pairs":
-        w = np.float32(0.7)
-        widths = [np.nextafter(w, np.float32(0)), w,
-                  np.nextafter(w, np.float32(1))]
-        boxes = np.zeros((n, 4), np.float32)
-        for i in range(n // 2):
-            y = np.float32(2 * i)        # exact: pairs never meet
-            boxes[2 * i] = [y, 0, y + 1, 1]
-            boxes[2 * i + 1] = [y, 0, y + 1, widths[i % 3]]
-        if n % 2:
-            boxes[-1] = [2 * n, 0, 2 * n + 1, 1]
-        valid = np.ones(n, bool)
-    elif kind == "classes":
-        boxes, valid = clustered_boxes(rng, n)
-        cls = rng.integers(1, 8, n).astype(np.float32)
-        boxes = boxes + 2.0 * cls[:, None] * (boxes.any(1, keepdims=True))
-        t, max_out = 0.3, 100
-    else:
-        raise ValueError(kind)
-    return boxes.astype(np.float32), valid, t, max_out
 
 
 # --------------------------------------------------------------------------
@@ -173,26 +65,11 @@ def test_gpu_nms_kernel_matches_plain(kind, n):
 # K2 ROIAlign, K3 stem, K4 chains
 # --------------------------------------------------------------------------
 
-def _roi_case(seed=0, b=2, c=32, base=64, n=50, dtype=torch.float32):
-    rng = np.random.default_rng(seed)
-    feats = [torch.from_numpy(rng.standard_normal(
-        (b, base >> l, base >> l, c)).astype(np.float32)).to(dtype)
-        for l in range(4)]
-    yx1 = rng.uniform(0, 0.7, size=(b * n, 2))
-    wh = rng.uniform(0.02, 0.6, size=(b * n, 2))
-    rois = np.concatenate([yx1, np.minimum(yx1 + wh, 1.0)], -1)
-    rois[::7] = 0.0
-    ys, xs, level, valid = roi_align.prepare(
-        torch.from_numpy(rois.astype(np.float32)),
-        [(f.shape[1], f.shape[2]) for f in feats], (1024, 1024), 224.0, 7)
-    return feats, ys, xs, level, valid, n
-
-
 @pytest.mark.gpu
 def test_gpu_roi_align_kernel_matches_plain():
     dev = _card()
     for dtype in (torch.float32, torch.bfloat16):
-        feats, ys, xs, level, valid, n = _roi_case(dtype=dtype)
+        feats, ys, xs, level, valid, n = roi_case(dtype=dtype)
         args = ([f.to(dev) for f in feats], ys.to(dev), xs.to(dev),
                 level.to(dev), valid.to(dev), n)
         want = roi_align_cuda.roi_align_plain(*args).float()
@@ -289,51 +166,6 @@ def test_gpu_roi_align_kernel_equals_plain(dtype, c, crop, b, n):
     assert not got[(b - 1) * n:].any()
 
 
-def _chain_case(seed=0, stage=2, cin=64, mid=64, cout=256, hw=(32, 32)):
-    """A projection block, then two identity blocks."""
-    rng = np.random.default_rng(seed)
-    params = stage_params(rng, stage, cin, mid, cout, "abc", True)
-    blocks = bottleneck_cuda.fold_bottleneck_chain(
-        params_from_numpy(params), stage, "abc")
-    x = torch.from_numpy(rng.standard_normal((2, *hw, cin))
-                         .astype(np.float32)).to(torch.bfloat16)
-    return x, blocks
-
-
-def _epilogue_case(seed=0, b=2, side=8, c=64, form="projection",
-                   dev="cpu"):
-    """A raw bf16 conv output y (b, side, side, c) with -0.0 and +-inf among
-    its values, its layer's constants (`conv_epilogue_cuda.prepare` of a
-    1x1 conv with a bias and a BN layer drawn from the seed), for the
-    identity and projection forms a residual (the block input, or the raw
-    shortcut output with -0.0 among its values) and for the projection the
-    shortcut's constants: (y, layer, residual, shortcut, params), params
-    the conv and BN dicts ("conv", "bn", "sconv", "sbn") they came from."""
-    rng = np.random.default_rng(seed)
-
-    def raw():
-        v = (rng.standard_normal((b, side, side, c)) * 2).astype(np.float32)
-        v.reshape(-1)[rng.choice(v.size, 3 + v.size // 1000,
-                                 replace=False)] = -0.0
-        return torch.from_numpy(v).to(dev).to(torch.bfloat16)
-
-    def layer(prefix):
-        params[prefix + "conv"] = {k: torch.from_numpy(v).to(dev) for k, v
-                                   in rand_conv(rng, 1, 1, 8, c).items()}
-        params[prefix + "bn"] = {k: torch.from_numpy(v).to(dev)
-                                 for k, v in rand_bn(rng, c).items()}
-        return conv_epilogue_cuda.prepare(params[prefix + "conv"],
-                                          params[prefix + "bn"])
-
-    params = {}
-    y = raw()
-    y.view(-1)[:4] = torch.tensor([float("inf"), -float("inf")] * 2)
-    lc = layer("")
-    residual = None if form == "bn_relu" else raw()
-    shortcut = layer("s") if form == "projection" else None
-    return y, lc, residual, shortcut, params
-
-
 def layer_sequence(y, params, residual=None):
     """The layers' ops on a raw conv output as `models/resnet.py::
     _bottleneck` runs them: `nn.conv2d`'s bias add, `nn.batch_norm`,
@@ -352,26 +184,6 @@ def layer_sequence(y, params, residual=None):
     return pt_nn.relu(t + residual)
 
 
-def resnet_case(seed=3, arch="resnet50", side=64, b=1, dev="cpu"):
-    """`init_resnet` params with every BN and conv bias drawn from the
-    seed (`rand_bn`; init zeroes the biases) and (b, side, side, 3)
-    mean-subtracted images, on `dev`."""
-    rng = np.random.default_rng(seed)
-    params = pt_resnet.init_resnet(torch.Generator().manual_seed(seed), arch)
-    for name, p in params.items():
-        if name.startswith("bn"):
-            p.update({k: torch.from_numpy(v) for k, v
-                      in rand_bn(rng, p["gamma"].shape[0]).items()})
-        else:
-            p["bias"] = torch.from_numpy((rng.standard_normal(
-                p["bias"].shape[0]) * 0.1).astype(np.float32))
-    params = {k: {w: v.to(dev) for w, v in d.items()}
-              for k, d in params.items()}
-    images = torch.from_numpy(rng.uniform(-120, 130, (b, side, side, 3))
-                              .astype(np.float32)).to(dev)
-    return params, images
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("stage,cin,mid,cout,hw", [
     (2, 64, 64, 256, (32, 32)), (2, 64, 64, 256, (20, 37)),
@@ -382,7 +194,7 @@ def test_gpu_chain_kernel_matches_plain(stage, cin, mid, cout, hw):
     """Mid widths 64 and 128, a projection then identity blocks, edge tiles
     the 8 x 16 tile does not divide, and 64-column output chunks."""
     dev = _card()
-    x, blocks = _chain_case(stage=stage, cin=cin, mid=mid, cout=cout, hw=hw)
+    x, blocks = chain_case(stage=stage, cin=cin, mid=mid, cout=cout, hw=hw)
     x = x.to(dev)
     blocks = [{k: v.to(dev) for k, v in b.items()} for b in blocks]
     want = bottleneck_cuda.chain_plain(x, blocks).float()
@@ -397,61 +209,13 @@ def test_gpu_chain_kernel_matches_plain(stage, cin, mid, cout, hw):
 # K5 classifier head, K6 mask head
 # --------------------------------------------------------------------------
 
-EDGE_ROIS = np.float32([
-    [0.0, 0.0, 0.3, 0.4],      # top-left corner
-    [0.6, 0.7, 1.0, 1.0],      # bottom-right corner
-    [0.0, 0.2, 1.0, 0.5],      # top to bottom
-    [0.3, 0.0, 0.5, 1.0],      # left to right
-    [0.0, 0.0, 1.0, 1.0],      # the whole image
-])
-
-
-def _head_case(seed=0, b=2, n=20, crop=7, c=256, dtype=torch.float32):
-    """Features, the pool's prepared positions, the packed head (K5 at
-    pool 7, K6 at pool 14, 81 classes, BN statistics from the seed) and
-    class ids: ROIs touching each image edge first, every ninth ROI
-    invalid, class ids 0 and 80 among 1..80."""
-    rng = np.random.default_rng(seed)
-    gen = torch.Generator().manual_seed(seed)
-    feats = [torch.from_numpy(rng.standard_normal(
-        (b, 64 >> l, 64 >> l, c)).astype(np.float32)).to(dtype)
-        for l in range(4)]
-    yx1 = rng.uniform(0, 0.7, size=(b * n, 2))
-    rois = np.concatenate([yx1, np.minimum(
-        yx1 + rng.uniform(0.02, 0.6, size=(b * n, 2)), 1.0)], -1)
-    for i in range(b):
-        k = min(n, len(EDGE_ROIS))
-        rois[i * n:i * n + k] = EDGE_ROIS[:k]
-    rois[8::9] = 0.0
-    prep = roi_align.prepare(torch.from_numpy(rois.astype(np.float32)),
-                             [(f.shape[1], f.shape[2]) for f in feats],
-                             (1024, 1024), 224.0, crop)
-    if crop == 7:
-        params = pt_heads.init_classifier_head(gen, 81, c, 7, 1024)
-    else:
-        params = pt_heads.init_mask_head(gen, 81, c, c)
-    for w in params.values():
-        if "moving_variance" in w:
-            k = w["gamma"].shape[0]
-            w.update(gamma=torch.rand(k, generator=gen) + 0.5,
-                     beta=torch.rand(k, generator=gen) * 0.4 - 0.2,
-                     moving_mean=torch.rand(k, generator=gen) * 0.4 - 0.2,
-                     moving_variance=torch.rand(k, generator=gen) + 0.5)
-    packed = (roi_align_cuda.pack_classifier_head(params, 81, dtype)
-              if crop == 7 else roi_align_cuda.pack_mask_head(params, dtype))
-    ids = rng.integers(1, 81, b * n).astype(np.int32)
-    ids[1::7] = 0
-    ids[3::7] = 80
-    return feats, prep, n, packed, torch.from_numpy(ids)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [20, 37])
 def test_gpu_classifier_head_kernel_matches_plain(n):
     """Full widths (C = 256, 12544 -> 1024 -> 1024 -> 512), 2 x n ROIs (not
     a multiple of the 128-row tile), every ninth ROI invalid."""
     dev = _card()
-    feats, prep, n, head, _ = _head_case(n=n, dtype=torch.bfloat16)
+    feats, prep, n, head, _ = head_case(n=n, dtype=torch.bfloat16)
     assert not prep[3].all()
     args = ([f.to(dev) for f in feats], *[t.to(dev) for t in prep], n,
             {k: v.to(dev) for k, v in head.items()})
@@ -470,7 +234,7 @@ def test_gpu_mask_head_kernel_matches_plain(b, n):
     """M = b x n ROIs: edge-touching ROIs (the 3x3 convs read past the
     14 x 14 grid on every side), invalid ROIs, class ids 0 and 80."""
     dev = _card()
-    feats, prep, n, mask, ids = _head_case(b=b, n=n, crop=14,
+    feats, prep, n, mask, ids = head_case(b=b, n=n, crop=14,
                                            dtype=torch.bfloat16)
     args = ([f.to(dev) for f in feats], *[t.to(dev) for t in prep], n,
             {k: v.to(dev) for k, v in mask.items()}, ids.to(dev))
@@ -494,7 +258,7 @@ def test_gpu_mask_head_kernel_runs_its_plan(monkeypatch, key, delta):
     does not cover the M x 196 positions once, or whose chunks do not match
     the weights' K, is refused with nothing launched."""
     dev = _card()
-    feats, prep, n, mask, ids = _head_case(b=1, n=37, crop=14,
+    feats, prep, n, mask, ids = head_case(b=1, n=37, crop=14,
                                            dtype=torch.bfloat16)
     args = ([f.to(dev) for f in feats], *[t.to(dev) for t in prep], n,
             {k: v.to(dev) for k, v in mask.items()}, ids.to(dev))
@@ -529,10 +293,10 @@ def test_gpu_fused_head_unbiased_against_float64(head):
     with NoTF32():
         for seed in range(4):
             if head == "classifier":
-                feats, prep, n, packed, _ = _head_case(
+                feats, prep, n, packed, _ = head_case(
                     seed, n=100, dtype=torch.bfloat16)
             else:
-                feats, prep, n, packed, ids = _head_case(
+                feats, prep, n, packed, ids = head_case(
                     seed, n=50, crop=14, dtype=torch.bfloat16)
             args = ([f.to(dev) for f in feats], *[t.to(dev) for t in prep],
                     n, {k: v.to(dev) for k, v in packed.items()})
@@ -685,18 +449,6 @@ def test_gpu_roi_align_function_runs_kernel_with_plain_grads(crop, dtype):
             atol=ROI_GRAD_TOL[dtype] * scale)
 
 
-def _live_bn(params, gen):
-    """Every BN's parameters drawn from the seed (random init zeroes each
-    block's last gamma, which makes every branch2a/2b kernel's gradient
-    exactly zero)."""
-    for w in params.values():
-        if "moving_variance" in w:
-            c = w["gamma"].shape[0]
-            u = lambda lo, hi: torch.rand(c, generator=gen) * (hi - lo) + lo
-            w["gamma"], w["beta"] = u(0.3, 0.8), u(-0.2, 0.2)
-            w["moving_mean"], w["moving_variance"] = u(-0.2, 0.2), u(0.5, 2.0)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("frozen", [False, True], ids=["batch_bn",
                                                        "frozen_bn_fused"])
@@ -719,7 +471,7 @@ def test_gpu_full_width_train_step(frozen):
                          train_fused_kernels=frozen)
     gen = torch.Generator().manual_seed(0)
     params = init_mask_rcnn(gen, cfg)
-    _live_bn(params, gen)
+    live_bn(params, gen)
     state, opt = train.make_train_state(params_to(params, dev), cfg)
     batch = synthetic_train_batch(cfg, 1, dev)
     anchors = torch.from_numpy(generate_anchors(cfg)).to(dev)
@@ -781,7 +533,7 @@ def test_gpu_conv_epilogue_bit_equal_to_layers(form, b, side, mid, out):
     wide, 2c and the shortcut `out`), in one launch."""
     dev = _card()
     c = mid if form == "bn_relu" else out
-    y, layer, res, short, params = _epilogue_case(b=b, side=side, c=c,
+    y, layer, res, short, params = epilogue_case(b=b, side=side, c=c,
                                                   form=form, dev=dev)
     cuda_lib.reset_launches()
     got = conv_epilogue_cuda.conv_epilogue(y, layer, res, short)
@@ -801,10 +553,10 @@ def test_gpu_conv_epilogue_refuses_what_it_cannot_take():
     a non-contiguous input, the launch on an input off a 16-byte
     boundary: no fallback on the card."""
     dev = _card()
-    y, layer, res, short, _ = _epilogue_case(c=12, dev=dev)
+    y, layer, res, short, _ = epilogue_case(c=12, dev=dev)
     with pytest.raises(ValueError, match="channels % 8"):
         conv_epilogue_cuda.conv_epilogue(y, layer, res, short)
-    y, layer, res, short, _ = _epilogue_case(c=64, dev=dev)
+    y, layer, res, short, _ = epilogue_case(c=64, dev=dev)
     with pytest.raises(ValueError, match="contiguous"):
         conv_epilogue_cuda.conv_epilogue(y.transpose(1, 2), layer, res,
                                          short)
@@ -877,13 +629,13 @@ def _gpu_op_cases(dev):
     nms = [nms_case("clustered", 6000, seed) for seed in (0, 1)]
     boxes = torch.from_numpy(np.stack([c[0] for c in nms])).to(dev)
     valid = torch.from_numpy(np.stack([c[1] for c in nms])).to(dev)
-    feats, ys, xs, level, valid_r, n = _roi_case(dtype=torch.bfloat16)
+    feats, ys, xs, level, valid_r, n = roi_case(dtype=torch.bfloat16)
     roi = ([f.to(dev) for f in feats], ys.to(dev), xs.to(dev),
            level.to(dev), valid_r.to(dev), n)
-    hf, hp, hn, head, _ = _head_case(n=20, dtype=torch.bfloat16)
+    hf, hp, hn, head, _ = head_case(n=20, dtype=torch.bfloat16)
     hargs = ([f.to(dev) for f in hf], *[t.to(dev) for t in hp], hn)
     head = {k: v.to(dev) for k, v in head.items()}
-    mf, mp, mn, mask, ids = _head_case(b=2, n=37, crop=14,
+    mf, mp, mn, mask, ids = head_case(b=2, n=37, crop=14,
                                        dtype=torch.bfloat16)
     margs = ([f.to(dev) for f in mf], *[t.to(dev) for t in mp], mn)
     mask = {k: v.to(dev) for k, v in mask.items()}
@@ -894,10 +646,10 @@ def _gpu_op_cases(dev):
     w, bias = stem_cuda.fold_stem_weights(sp["conv1"], sp["bn_conv1"])
     images = torch.from_numpy(rng.uniform(-124, 132, (2, 128, 128, 3))
                               .astype(np.float32)).to(dev)
-    x, blocks = _chain_case()
+    x, blocks = chain_case()
     x = x.to(dev)
     blocks = [{k: v.to(dev) for k, v in b.items()} for b in blocks]
-    y, layer, res, short, _ = _epilogue_case(dev=dev)
+    y, layer, res, short, _ = epilogue_case(dev=dev)
     ep = conv_epilogue_cuda
     rac = roi_align_cuda
     return {
@@ -1007,7 +759,7 @@ def test_gpu_mobilenet_forward_matches_cpu(no_tf32):
                 detection_score_threshold=0.25)
     gen = torch.Generator().manual_seed(0)
     params = M.init_mask_rcnn(gen, cfg)
-    _live_bn(params, gen)
+    live_bn(params, gen)
     images = torch.rand((2, 128, 128, 3), generator=gen) * 255
     want = M.to_numpy(M.forward(params, images, cfg, device="cpu"))
     cuda_lib.reset_launches()
@@ -1033,7 +785,7 @@ def test_gpu_export_round_trip(tmp_path):
     cfg = _tiny(detection_score_threshold=0.0)
     gen = torch.Generator().manual_seed(1)
     params = M.init_mask_rcnn(gen, cfg)
-    _live_bn(params, gen)
+    live_bn(params, gen)
     export.export_program(params, cfg, str(tmp_path), batch=2, device=dev)
     program = export.load_program(str(tmp_path))
     images = (torch.rand((2, 128, 128, 3), generator=gen) * 255).to(dev)

@@ -15,6 +15,8 @@ from maskrcnn_tpu.ops import roi_align_pallas as jax_rap
 from maskrcnn_tpu_torch.io.weights import params_from_numpy
 from maskrcnn_tpu_torch.ops import roi_align as pt_ra
 from maskrcnn_tpu_torch.ops import roi_align_cuda as pt_rac
+from tests.torch_support import jax_tree
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 IMAGE_SHAPE = (128, 128)
 CANONICAL = 224.0
@@ -45,7 +47,7 @@ def _inputs(rng, b=2, n=24):
     return feats, rois
 
 
-def _live_bn(rng, flat, names, scale=1.0):
+def _redraw_bn(rng, flat, names, scale=1.0):
     for name in names:
         c = flat[name]["gamma"].shape[0]
         flat[name] = {k: v.astype(np.float32) for k, v in {
@@ -60,7 +62,7 @@ def classifier_params(rng):
                                   in_channels=C, pool_size=7, fc_dim=64)
     flat = {k: {w: np.asarray(v, np.float32) for w, v in d.items()}
             for k, d in params.items()}
-    _live_bn(rng, flat, ("mrcnn_class_bn1", "mrcnn_class_bn2"))
+    _redraw_bn(rng, flat, ("mrcnn_class_bn1", "mrcnn_class_bn2"))
     flat["mrcnn_class_logits"]["bias"] = rng.standard_normal(
         CLS_CLASSES).astype(np.float32) * 0.1
     return flat
@@ -71,7 +73,7 @@ def mask_params(rng):
                             in_channels=C, channels=C)
     flat = {k: {w: np.asarray(v, np.float32) for w, v in d.items()}
             for k, d in params.items()}
-    _live_bn(rng, flat, [f"mrcnn_mask_bn{i}" for i in range(1, 5)], 0.1)
+    _redraw_bn(rng, flat, [f"mrcnn_mask_bn{i}" for i in range(1, 5)], 0.1)
     flat["mrcnn_mask_deconv"]["bias"] = (rng.standard_normal(C)
                                          * 0.1).astype(np.float32)
     flat["mrcnn_mask"]["bias"] = (rng.standard_normal(MASK_CLASSES)
@@ -79,23 +81,18 @@ def mask_params(rng):
     return flat
 
 
-def _jax(flat):
-    return {k: {w: jnp.asarray(v) for w, v in d.items()}
-            for k, d in flat.items()}
-
-
 @pytest.mark.parametrize("head", ["classifier", "mask"])
 def test_head_packing_matches_jax(head):
     rng = np.random.default_rng(1)
     if head == "classifier":
         flat = classifier_params(rng)
-        want = jax_rap.pack_classifier_head(_jax(flat), CLS_CLASSES,
+        want = jax_rap.pack_classifier_head(jax_tree(flat), CLS_CLASSES,
                                             dtype=jnp.float32)
         got = pt_rac.pack_classifier_head(params_from_numpy(flat),
                                           CLS_CLASSES, dtype=torch.float32)
     else:
         flat = mask_params(rng)
-        want = jax_rap.pack_mask_head(_jax(flat), dtype=jnp.float32)
+        want = jax_rap.pack_mask_head(jax_tree(flat), dtype=jnp.float32)
         got = pt_rac.pack_mask_head(params_from_numpy(flat),
                                     dtype=torch.float32)
     assert set(got) == set(want)
@@ -112,7 +109,7 @@ def test_classifier_head_matches_pallas_kernel():
     _, head_out = jax_rap.pyramid_roi_align_pallas(
         [jnp.asarray(f) for f in feats], jnp.asarray(rois), 7, IMAGE_SHAPE,
         CANONICAL, interpret=True,
-        head_params=jax_rap.pack_classifier_head(_jax(flat), CLS_CLASSES,
+        head_params=jax_rap.pack_classifier_head(jax_tree(flat), CLS_CLASSES,
                                                  dtype=jnp.float32))
     want_p, want_d, _ = jax_rap.unpack_classifier_head(head_out, CLS_CLASSES)
 
@@ -140,7 +137,7 @@ def test_mask_head_matches_pallas_kernel():
     _, raw = jax_rap.pyramid_roi_align_pallas(
         [jnp.asarray(f) for f in feats], jnp.asarray(rois), 14, IMAGE_SHAPE,
         CANONICAL, interpret=True,
-        mask_params=jax_rap.pack_mask_head(_jax(flat), dtype=jnp.float32),
+        mask_params=jax_rap.pack_mask_head(jax_tree(flat), dtype=jnp.float32),
         class_ids=jnp.asarray(class_ids))
     want = np.asarray(jax_rap.unpack_masks(raw, 14))
 

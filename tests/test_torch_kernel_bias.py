@@ -25,20 +25,10 @@ from maskrcnn_tpu_torch.models import heads
 from maskrcnn_tpu_torch.ops import bottleneck_cuda, roi_align, stem_cuda
 from maskrcnn_tpu_torch.ops import roi_align_cuda as rac
 from maskrcnn_tpu_torch.tools import kernel_bias as kb
-from tests.test_torch_gpu import stage_params, stem_params
+from tests.torch_support import stage_params, stem_params
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 F64 = torch.float64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and these tests' many small ops slow by 10-50x when each one
-    waits on threads the other workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _size():

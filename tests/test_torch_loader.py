@@ -24,7 +24,8 @@ from maskrcnn_tpu_torch.io import weights as pt_weights
 from maskrcnn_tpu_torch.pipeline import loader as pt_loader
 from maskrcnn_tpu_torch.pipeline import stream as pt_stream
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
-from tests.test_torch_model import OVERRIDES, live_bn_params
+from tests.torch_support import OVERRIDES, live_bn_params
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 SHAPES = [(61, 90), (61, 90, 1), (90, 61, 3), (45, 130, 4)]
 

@@ -26,42 +26,18 @@ from maskrcnn_tpu_torch.models import mobilenet as pt_mbv2
 from maskrcnn_tpu_torch.ops import cuda_lib
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
 from maskrcnn_tpu_torch.train import step as pt_step
-from tests.test_torch_model import TOL, live_bn_params
-from tests.test_torch_train import _batch, jax_draws, t
+from tests.torch_support import (TOL, crowd_batch, jax_draws, jax_tree,
+                                 jit_live_bn_params, t)
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 MBV2 = dict(architecture="mobilenetv2", compute_dtype="float32",
             detection_score_threshold=0.25)
 BATCH_BN = {"use_batch_stats": True, "collect": None}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and these tests' many small ops slow by 10-20x when each one
-    waits on threads the other workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _shapes(params):
     return {k: {w: tuple(v.shape) for w, v in d.items()}
             for k, d in params.items()}
-
-
-def _jax_tree(flat):
-    return {k: {w: jnp.asarray(v) for w, v in d.items()}
-            for k, d in flat.items()}
-
-
-def jit_live_bn_params(seed, config):
-    """`live_bn_params` with the JAX init jitted (eagerly, its random draws
-    take 10-20 s): the same values."""
-    init = jax.jit(lambda k, f=jax_model.init_mask_rcnn: f(k, config))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_model, "init_mask_rcnn", lambda key, cfg: init(key))
-        return live_bn_params(seed=seed, config=config)
 
 
 @pytest.fixture(scope="module")
@@ -92,7 +68,7 @@ def test_init_names_and_shapes_match_jax():
 def test_backbone_c2_c5_match_jax(flat, hw):
     x = np.random.default_rng(hw[1]).uniform(
         -120, 130, (2, *hw, 3)).astype(np.float32)
-    want = jax_mbv2.apply_mobilenetv2(_jax_tree(flat), jnp.asarray(x),
+    want = jax_mbv2.apply_mobilenetv2(jax_tree(flat), jnp.asarray(x),
                                       dtype=jnp.float32)
     got = pt_mbv2.apply_mobilenetv2(pt_weights.params_from_numpy(flat),
                                     torch.from_numpy(x), dtype=torch.float32)
@@ -108,7 +84,7 @@ def forwards(flat):
     images = np.random.default_rng(1).uniform(
         0, 255, (2, 128, 128, 3)).astype(np.float32)
     jcfg = jax_tiny().replace(**MBV2)
-    want = jax_model.forward(_jax_tree(flat), jnp.asarray(images),
+    want = jax_model.forward(jax_tree(flat), jnp.asarray(images),
                              jnp.asarray(jax_anchors(jcfg)), jcfg)
     want = jax.tree_util.tree_map(np.asarray, want)
     cuda_lib.reset_launches()
@@ -172,12 +148,12 @@ def test_frozen_bn_losses_match_jax(flat):
     overrides = dict(MBV2, train_bn="frozen", train_sampling_topk="exact")
     jcfg = jax_tiny().replace(**overrides)
     pcfg = pt_tiny().replace(train_fused_kernels=True, **overrides)
-    batch = _batch(np.random.default_rng(5), jcfg)
+    batch = crowd_batch(np.random.default_rng(5), jcfg)
     anchors = jax_anchors(jcfg)
     key = jax.random.PRNGKey(11)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     _, jm = jax.jit(lambda p: jax_step.compute_losses(
-        p, jb, jnp.asarray(anchors), jcfg, key))(_jax_tree(flat))
+        p, jb, jnp.asarray(anchors), jcfg, key))(jax_tree(flat))
     pool = jcfg.max_proposals + batch["gt_boxes"].shape[1]
     draws = {k: t(v) for k, v in jax_draws(key, 2, anchors.shape[0],
                                            pool).items()}
@@ -197,7 +173,7 @@ def test_train_step_runs_with_fused_head_flags(flat):
     moves every layer it trains, the depthwise ones included."""
     cfg = pt_tiny().replace(fuse_classifier_head=True, fuse_mask_head=True,
                             **MBV2)
-    batch = _batch(np.random.default_rng(7), cfg, b=1)
+    batch = crowd_batch(np.random.default_rng(7), cfg, b=1)
     state, opt = pt_step.make_train_state(
         pt_weights.params_from_numpy(flat), cfg)
     new, metrics = pt_step.train_step(state, batch, pt_anchors(cfg), cfg,
@@ -232,13 +208,13 @@ def test_batch_bn_block_grads_match_jax(flat, block, stride, hw):
         return jax_mbv2._block(xx, p, base, t_, c, stride, jnp.float32,
                                BATCH_BN)
 
-    out = jfn(_jax_tree(sub), jnp.asarray(x))
+    out = jfn(jax_tree(sub), jnp.asarray(x))
     cot = rng.standard_normal(out.shape).astype(np.float32)
     jgrad = jax.jit(jax.grad(lambda p, xx: jnp.sum(jfn(p, xx) * cot)))
-    jg = jax.tree_util.tree_map(np.asarray, jgrad(_jax_tree(sub),
+    jg = jax.tree_util.tree_map(np.asarray, jgrad(jax_tree(sub),
                                                   jnp.asarray(x)))
     moved = [jax.tree_util.tree_map(np.asarray, jgrad(
-        _jax_tree(sub), jnp.asarray(x * np.float32(1 + s * 2 ** -18))))
+        jax_tree(sub), jnp.asarray(x * np.float32(1 + s * 2 ** -18))))
         for s in (1, -1)]
     pp = pt_weights.params_from_numpy(sub)
     leaves = [(k, w) for k, d in pp.items() for w in d

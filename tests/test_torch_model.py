@@ -20,31 +20,8 @@ from maskrcnn_tpu_torch.io import weights as pt_weights
 from maskrcnn_tpu_torch.models import mask_rcnn as pt_model
 from maskrcnn_tpu_torch.models import resnet as pt_resnet
 from maskrcnn_tpu_torch.pipeline.detector import Detection, MaskRCNNDetector
-
-TOL = dict(rtol=1e-4, atol=1e-4)
-# random heads rarely reach 0.7; a low threshold sends real boxes to the
-# detection NMS and the mask branch
-OVERRIDES = dict(compute_dtype="float32", detection_score_threshold=0.25)
-
-
-def live_bn_params(seed=0, config=None):
-    """JAX `init_mask_rcnn` params as numpy (of `config`, default the tiny
-    one), every BN's statistics redrawn so each residual branch is live."""
-    params = jax_model.init_mask_rcnn(
-        jax.random.PRNGKey(seed), config or jax_tiny().replace(**OVERRIDES))
-    rng = np.random.default_rng(seed)
-    flat = {}
-    for layer, weights in params.items():
-        w = {k: np.asarray(v, np.float32) for k, v in weights.items()}
-        if "moving_variance" in w:
-            c = w["gamma"].shape[0]
-            w = {"gamma": rng.uniform(0.3, 0.8, c),
-                 "beta": rng.uniform(-0.2, 0.2, c),
-                 "moving_mean": rng.uniform(-0.2, 0.2, c),
-                 "moving_variance": rng.uniform(0.5, 2.0, c)}
-            w = {k: v.astype(np.float32) for k, v in w.items()}
-        flat[layer] = w
-    return flat
+from tests.torch_support import OVERRIDES, TOL, live_bn_params, t
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -233,9 +210,6 @@ def stage_by_stage(jcfg, pcfg, batch=1, seed=0):
         got = got.numpy() if isinstance(got, torch.Tensor) else got
         assert got.shape == np.shape(ref)
         np.testing.assert_allclose(got, np.asarray(ref), **TOL)
-
-    def t(a):
-        return torch.from_numpy(np.array(a))
 
     x = images - np.asarray(jcfg.mean_pixel, np.float32)
     c_want = jax_resnet.apply_resnet(jp, jnp.asarray(x), jcfg.architecture,

@@ -31,6 +31,7 @@ from maskrcnn_tpu_torch.evalkit import mask_rle as pt_rle
 from maskrcnn_tpu_torch.pipeline import detector as pt_det
 from maskrcnn_tpu_torch.pipeline import loader as pt_loader
 from maskrcnn_tpu_torch.pipeline.preprocess import letterbox_numpy
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PT_SRC = os.path.join(os.path.dirname(pt_native.__file__), "src")

@@ -27,8 +27,8 @@ from maskrcnn_tpu_torch.ops.nms import nms_gather, nms_padded
 from maskrcnn_tpu_torch.ops.proposals import generate_proposals as pt_proposals
 from maskrcnn_tpu_torch.ops.roi_align import pyramid_roi_align, roi_levels
 from tests.test_boxes import random_boxes
-from tests.test_torch_gpu import NMS_KINDS as NMS_WALK_KINDS
-from tests.test_torch_gpu import clustered_boxes, nms_case
+from tests.torch_support import NMS_KINDS, clustered_boxes, nms_case
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 
@@ -217,7 +217,7 @@ def test_roi_align_matches_pallas_kernel(rng):
 
 
 @pytest.mark.parametrize("n", [37, 200, 1000])
-@pytest.mark.parametrize("kind", NMS_WALK_KINDS)
+@pytest.mark.parametrize("kind", NMS_KINDS)
 def test_nms_walk_matches_jax(kind, n):
     """The plain version (packed mask + chunk walk) keeps the same first
     max_out boxes as the JAX package's XLA NMS and its TPU kernel in

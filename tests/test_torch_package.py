@@ -3,6 +3,7 @@ launch plans. The kernels against their plain versions on the card are in
 `tests/test_torch_gpu.py` (marked `gpu`), which two tests here hold to
 importing neither JAX nor the JAX package."""
 
+import ast
 import os
 import re
 import subprocess
@@ -21,8 +22,10 @@ from maskrcnn_tpu_torch.ops import (bottleneck_cuda, conv_epilogue_cuda,
                                     cuda_lib, nms_cuda, roi_align,
                                     roi_align_cuda, stem_cuda)
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
-from tests.test_torch_gpu import (_chain_case, _epilogue_case, _head_case,
-                                  _roi_case, clustered_boxes, stem_params)
+from tests.torch_support import (STARTING_THREADS, chain_case,
+                                 clustered_boxes, epilogue_case, head_case,
+                                 roi_case, starting_threads, stem_params)
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(maskrcnn_tpu_torch.__file__)
@@ -161,6 +164,73 @@ def test_gpu_tests_collect_and_skip_without_jax_or_conftest():
         assert "needs an NVIDIA card" in out.stdout
 
 
+
+# the port's test files, and the one module they share
+TEST_FILES = sorted(f for f in os.listdir(os.path.join(ROOT, "tests"))
+                    if re.fullmatch(r"test_torch_\w+\.py", f))
+SUPPORT = "torch_support.py"
+
+
+def _tree(name):
+    with open(os.path.join(ROOT, "tests", name)) as f:
+        return ast.parse(f.read())
+
+
+def test_port_tests_import_helpers_from_torch_support_only():
+    """No port test file, nor `tests/torch_support.py`, imports from a
+    `tests/test_*` module but `tests/test_boxes.py::random_boxes`:
+    helpers live in `tests/torch_support.py`, and a test module is not a
+    library."""
+    assert "test_torch_gpu.py" in TEST_FILES and len(TEST_FILES) > 20
+    bad = []
+    for name in TEST_FILES + [SUPPORT]:
+        for node in ast.walk(_tree(name)):
+            if isinstance(node, ast.ImportFrom) and node.module:
+                mods = [(node.module, a.name) for a in node.names]
+            elif isinstance(node, ast.Import):
+                mods = [(a.name, None) for a in node.names]
+            else:
+                continue
+            bad += [(name, m, n) for m, n in mods
+                    if re.match(r"tests\.test_", m)
+                    and (m, n) != ("tests.test_boxes", "random_boxes")]
+    assert not bad, bad
+
+
+def test_only_torch_support_sets_torch_threads():
+    """The thread count is set in `tests/torch_support.py` alone, code
+    handed to a fresh interpreter included."""
+    call = re.compile(r"\bset_num_threads\s*\(")
+    for name in TEST_FILES:
+        with open(os.path.join(ROOT, "tests", name)) as f:
+            assert not call.search(f.read()), name
+    with open(os.path.join(ROOT, "tests", SUPPORT)) as f:
+        assert call.search(f.read())
+
+
+def test_every_port_test_file_but_the_card_file_takes_one_thread():
+    """Each `tests/test_torch_*.py` imports the autouse fixture
+    `one_thread` at module level; `tests/test_torch_gpu.py`, which runs
+    alone on the card, keeps torch's threads."""
+    def takes(name):
+        return any(isinstance(node, ast.ImportFrom)
+                   and node.module == "tests.torch_support"
+                   and "one_thread" in [a.name for a in node.names]
+                   for node in _tree(name).body)
+
+    assert [f for f in TEST_FILES if not takes(f)] == ["test_torch_gpu.py"]
+
+
+def test_one_thread_rule_and_its_exception():
+    """Inside this module torch runs one intra-op thread (the fixture is
+    autouse: no test asks for it);
+    `starting_threads()` gives back the count the process started with
+    inside its block only."""
+    assert torch.get_num_threads() == 1
+    with starting_threads():
+        assert torch.get_num_threads() == STARTING_THREADS
+    assert torch.get_num_threads() == 1
+
 def test_entry_points_need_a_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_test_config()
@@ -221,7 +291,7 @@ def test_wrappers_take_plain_version_on_cpu():
     boxes, valid = _nms_case()
     keep = nms_cuda.nms_keep(boxes, valid, 0.7, 50)
     assert keep.dtype == torch.bool and keep.shape == valid.shape
-    feats, ys, xs, level, valid_r, n = _roi_case()
+    feats, ys, xs, level, valid_r, n = roi_case()
     out = roi_align_cuda.roi_align(feats, ys, xs, level, valid_r, n)
     assert out.shape == (ys.shape[0], 7, 7, 32)
     rng = np.random.default_rng(0)
@@ -229,16 +299,16 @@ def test_wrappers_take_plain_version_on_cpu():
           for k, d in stem_params(rng).items()}
     y = stem_cuda.apply_stem(sp, torch.zeros((1, 64, 64, 3)))
     assert y.shape == (1, 16, 16, 64) and y.dtype == torch.bfloat16
-    x, blocks = _chain_case()
+    x, blocks = chain_case()
     z = bottleneck_cuda.fused_bottleneck_chain(x, blocks)
     assert z.shape == (2, 32, 32, 256) and z.dtype == torch.bfloat16
-    feats, prep, n, head, _ = _head_case(c=32, n=6)
+    feats, prep, n, head, _ = head_case(c=32, n=6)
     h = roi_align_cuda.roi_classifier_head(feats, *prep, n, head)
     assert h.shape == (12, roi_align_cuda.HEAD_OUT) and h.dtype == torch.float32
-    feats, prep, n, mask, ids = _head_case(c=32, n=6, crop=14)
+    feats, prep, n, mask, ids = head_case(c=32, n=6, crop=14)
     mk = roi_align_cuda.roi_mask_head(feats, *prep, n, mask, ids)
     assert mk.shape == (12, 28, 28) and mk.dtype == torch.float32
-    y, layer, res, short, _ = _epilogue_case()
+    y, layer, res, short, _ = epilogue_case()
     e = conv_epilogue_cuda.conv_epilogue(y, layer, res, short)
     assert e.shape == y.shape and e.dtype == torch.bfloat16
     assert set(cuda_lib.launches) == {"nms", "roi_align", "stem",
@@ -292,17 +362,17 @@ def _op_cases():
     """(op name, wrapper call, plain call, op args) of each kernel's custom
     op at small shapes on the CPU."""
     boxes, valid = _nms_case()
-    feats, ys, xs, level, valid_r, n = _roi_case()
+    feats, ys, xs, level, valid_r, n = roi_case()
     rng = np.random.default_rng(0)
     sp = {k: {w: torch.from_numpy(v) for w, v in d.items()}
           for k, d in stem_params(rng).items()}
     w, b = stem_cuda.fold_stem_weights(sp["conv1"], sp["bn_conv1"])
     images = torch.from_numpy(rng.uniform(-120, 130, (1, 64, 64, 3))
                               .astype(np.float32))
-    x, blocks = _chain_case()
-    y, layer, res, short, _ = _epilogue_case()
-    hfeats, hprep, hn, head, _ = _head_case(c=32, n=6)
-    mfeats, mprep, mn, mask, ids = _head_case(c=32, n=6, crop=14)
+    x, blocks = chain_case()
+    y, layer, res, short, _ = epilogue_case()
+    hfeats, hprep, hn, head, _ = head_case(c=32, n=6)
+    mfeats, mprep, mn, mask, ids = head_case(c=32, n=6, crop=14)
     rac = roi_align_cuda
     return {
         "nms_keep": (lambda: nms_cuda.nms_keep(boxes, valid, 0.7, 50),

@@ -29,6 +29,8 @@ from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
 from maskrcnn_tpu_torch.pipeline.preprocess import compute_window
 from maskrcnn_tpu_torch.train import losses as L
 from maskrcnn_tpu_torch.train.step import make_train_state, train_step
+from tests.torch_support import jax_draws, pin_one_thread, train_batch
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 WORLD = 2
 F32 = dict(compute_dtype="float32")
@@ -38,17 +40,6 @@ TRAIN = dict(compute_dtype="float32", train_sampling_topk="exact",
 # the same with batch statistics, the default `train_bn`
 BATCH_BN = dict(TRAIN, train_bn="batch")
 JAX_KEY = 11
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and these tests' many small ops slow by 10-20x when each one
-    waits on threads the other workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _params(cfg, seed=0):
@@ -147,23 +138,6 @@ def test_detector_dp_pads_uint8_as_uint8(monkeypatch):
 # training over 2 gloo ranks
 # --------------------------------------------------------------------------
 
-def train_batch(cfg, b, seed=0):
-    """`tests/test_parallel.py::_train_batch`."""
-    g, m = 4, 28
-    rng = np.random.default_rng(seed)
-    yx1 = rng.uniform(0, 0.6, (b, g, 2))
-    wh = rng.uniform(0.1, 0.3, (b, g, 2))
-    return {
-        "images": rng.uniform(0, 255, (b, cfg.image_height,
-                                       cfg.image_width, 3)).astype(
-            np.float32),
-        "gt_boxes": np.concatenate([yx1, yx1 + wh], -1).astype(np.float32),
-        "gt_class_ids": rng.integers(1, cfg.num_classes, (b, g)).astype(
-            np.int32),
-        "gt_masks": (rng.random((b, g, m, m)) > 0.5).astype(np.float32),
-    }
-
-
 def bn_case():
     """A BN layer's global input (4 images), params and cotangent."""
     rng = np.random.default_rng(3)
@@ -227,7 +201,6 @@ def bn_step_draws(cfg, b):
     """The uniforms the JAX package's `compute_losses` draws from
     `PRNGKey(JAX_KEY)` for a batch of `b` (`train_batch`'s 4 GT boxes)."""
     import jax
-    from tests.test_torch_train import jax_draws
     return jax_draws(jax.random.PRNGKey(JAX_KEY), b,
                      generate_anchors(cfg).shape[0], cfg.max_proposals + 4)
 
@@ -236,7 +209,7 @@ def _rank(rank, world, store, out_dir, draws):
     """One gloo rank: the BN layer and the head losses over the world's
     ranks on this rank's rows, then 2 frozen-BN DP training steps on this
     rank's image, then one batch-BN step with the global batch's `draws`."""
-    torch.set_num_threads(1)
+    pin_one_thread()
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:

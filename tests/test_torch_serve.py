@@ -13,7 +13,6 @@ import urllib.request
 import numpy as np
 import jax  # noqa: F401  (the port's tests import both frameworks)
 import pytest
-import torch
 
 import maskrcnn_tpu.evalkit.mask_rle as jax_rle
 import maskrcnn_tpu_torch.evalkit.mask_rle as pt_rle
@@ -21,30 +20,16 @@ from maskrcnn_tpu.pipeline import detector as jax_det
 from maskrcnn_tpu.pipeline import serve as jax_serve
 from maskrcnn_tpu_torch.core.config import tiny_test_config as pt_tiny
 from maskrcnn_tpu_torch.evalkit.mask_rle import decode, from_coco_counts
-from maskrcnn_tpu_torch.models.mask_rcnn import init_mask_rcnn
 from maskrcnn_tpu_torch.pipeline import detector as pt_det
 from maskrcnn_tpu_torch.pipeline.serve import (BatchingWorker,
                                                _detections_to_json,
                                                make_server)
+from tests.torch_support import port_params
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 # every detection above the score threshold 0 reaches the mask branch
 CONFIG = pt_tiny().replace(compute_dtype="float32",
                            detection_score_threshold=0.0)
-
-
-def port_params(config, seed=0):
-    """The port's random params, each BN's statistics redrawn from the seed
-    so every residual branch is live."""
-    gen = torch.Generator().manual_seed(seed)
-    params = init_mask_rcnn(gen, config)
-    for w in params.values():
-        if "moving_variance" in w:
-            c = w["gamma"].shape[0]
-            w["gamma"] = torch.rand(c, generator=gen) * 0.5 + 0.3
-            w["beta"] = torch.rand(c, generator=gen) * 0.4 - 0.2
-            w["moving_mean"] = torch.rand(c, generator=gen) * 0.4 - 0.2
-            w["moving_variance"] = torch.rand(c, generator=gen) * 1.5 + 0.5
-    return params
 
 
 @pytest.fixture(scope="module")

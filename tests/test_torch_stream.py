@@ -23,7 +23,8 @@ from maskrcnn_tpu_torch.pipeline import paste as pt_paste
 from maskrcnn_tpu_torch.pipeline import preprocess as pt_pre
 from maskrcnn_tpu_torch.pipeline import stream as pt_stream
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
-from tests.test_torch_model import OVERRIDES, live_bn_params
+from tests.torch_support import OVERRIDES, live_bn_params
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 FUSED = dict(OVERRIDES, fuse_classifier_head=True, fuse_mask_head=True)
 

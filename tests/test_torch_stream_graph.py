@@ -24,17 +24,10 @@ from maskrcnn_tpu_torch.ops import common, cuda_lib
 from maskrcnn_tpu_torch.ops.common import device_constant
 from maskrcnn_tpu_torch.pipeline import stream
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 FUSED = dict(fuse_classifier_head=True, fuse_mask_head=True,
              detection_score_threshold=0.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def test_run_stream_on_cpu_takes_no_graph():

@@ -18,6 +18,7 @@ from maskrcnn_tpu_torch.core.config import tiny_test_config  # noqa: E402
 from maskrcnn_tpu_torch.evalkit import tf_forward as pt_tfm  # noqa: E402
 from maskrcnn_tpu_torch.io.weights import params_from_numpy  # noqa: E402
 from maskrcnn_tpu_torch.models import mask_rcnn as pt_model  # noqa: E402
+from tests.torch_support import one_thread  # noqa: E402,F401  (autouse)
 
 # the oracle's numerics: float32, exact top-k, table anchors
 EXACT = dict(compute_dtype="float32", proposal_topk_recall=None,

@@ -12,7 +12,6 @@ import sys
 import numpy as np
 import jax  # noqa: F401  (the port's tests import both frameworks)
 import pytest
-import torch
 
 import maskrcnn_tpu.evalkit.cocoeval as jax_ce
 import maskrcnn_tpu.evalkit.mask_rle as jax_rle
@@ -27,6 +26,7 @@ from maskrcnn_tpu_torch.tools import bench_cocoeval as pt_bc
 from maskrcnn_tpu_torch.tools import bench_results_leg as pt_rl
 from maskrcnn_tpu_torch.tools import flagship_seed_band as pt_band
 from maskrcnn_tpu_torch.tools import serve_probe as pt_sp
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 from tools import bench_cocoeval as jax_bc
 from tools import bench_results_leg as jax_rl
 from tools import flagship_seed_band as jax_band
@@ -38,17 +38,6 @@ PROOFS = [os.path.join(TOOLS, f"flagship_proof_h100_seed{s}.json")
           for s in (0, 1)]
 NUMERICS = [os.path.join(TOOLS, f"proof_numerics_h100_seed{s}.json")
             for s in (0, 1)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and these tests' many small ops slow by 10-50x when each one
-    waits on threads the other workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def no_native(monkeypatch):

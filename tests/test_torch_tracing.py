@@ -13,6 +13,7 @@ from maskrcnn_tpu_torch.core.config import tiny_test_config
 from maskrcnn_tpu_torch.pipeline import stream
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
 from maskrcnn_tpu_torch.utils import profiling
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 BASE = dict(compute_dtype="float32", detection_score_threshold=0.0)
 SPANS = {"detector.run_batch", "mesh.copy_in", "forward", "preprocess",

@@ -33,6 +33,8 @@ from maskrcnn_tpu_torch.train.checkpoint import (CheckpointManager,
                                                  restore_train_state,
                                                  save_train_state)
 from maskrcnn_tpu_torch.train.step import make_train_state, train_step
+from tests.torch_support import train_batch
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 CFG = pt_tiny().replace(compute_dtype="float32")
 
@@ -49,35 +51,9 @@ def no_native(monkeypatch):
     monkeypatch.setattr(pt_rle, "get_rle_lib", lambda: None)
 
 
-@pytest.fixture
-def one_thread():
-    """One CPU thread: the multi-threaded CPU backward accumulates some
-    gradients (the ROIAlign backward's scatter into the features) in an
-    order that changes from run to run, which bit-equality of two runs
-    cannot allow."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _state(seed=0, cfg=CFG):
     params = init_mask_rcnn(torch.Generator().manual_seed(seed), cfg)
     return make_train_state(params, cfg)
-
-
-def _batch(seed=0, cfg=CFG, b=1, g=4):
-    rng = np.random.default_rng(seed)
-    yx1 = rng.uniform(0, 0.6, (b, g, 2))
-    wh = rng.uniform(0.1, 0.3, (b, g, 2))
-    m = cfg.mask_size
-    return {"images": rng.uniform(0, 255, (b, 128, 128, 3)).astype(
-                np.float32),
-            "gt_boxes": np.concatenate([yx1, yx1 + wh], -1).astype(
-                np.float32),
-            "gt_class_ids": rng.integers(1, cfg.num_classes, (b, g)).astype(
-                np.int32),
-            "gt_masks": (rng.random((b, g, m, m)) > 0.5).astype(np.float32)}
 
 
 def _assert_states_equal(a, b):
@@ -94,14 +70,13 @@ def _assert_states_equal(a, b):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("momentum", ["float32", "bfloat16"])
-def test_save_restore_and_resume_equal_uninterrupted(tmp_path, momentum,
-                                                     one_thread):
+def test_save_restore_and_resume_equal_uninterrupted(tmp_path, momentum):
     """2 steps + save + restore into a fresh template + 1 step equals 3
     steps in one go, bit for bit (the sampling draws depend on (seed,
     step) only)."""
     cfg = CFG.replace(train_momentum_dtype=momentum)
     anchors = generate_anchors(cfg)
-    batch = _batch()
+    batch = train_batch(CFG, 1)
     state, opt = _state(cfg=cfg)
     for _ in range(2):
         state, _ = train_step(state, batch, anchors, cfg, opt, seed=9)
@@ -313,7 +288,7 @@ def test_minimask_matches_jax(coco_dir):
 # --------------------------------------------------------------------------
 
 def test_cli_train_synthetic_state_output_and_resume(tmp_path, capsys,
-                                                     monkeypatch, one_thread):
+                                                     monkeypatch):
     """`--synthetic --device cpu`: the state and a calibrated `.npz` are
     written; `--resume` continues to the total step with the losses an
     uninterrupted run logs; the metrics log gets a line per logged

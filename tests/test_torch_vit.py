@@ -8,8 +8,7 @@ against a per-head loop written from the equations; the bias and the
 global blocks shown to matter; the detector, the spans, the config
 check, the weight files and the training guard.
 
-One intra-op thread, as the other heavy files: the suite runs in several
-worker processes."""
+One intra-op thread, by `tests/torch_support.py`'s rule."""
 
 import math
 
@@ -26,6 +25,7 @@ from maskrcnn_tpu_torch.models import mask_rcnn as M
 from maskrcnn_tpu_torch.models import vit
 from maskrcnn_tpu_torch.ops import attention as A
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 SEED = 2 ** 31 + 19
 # float32 on both sides: the port and the reference sum in other orders
@@ -43,19 +43,8 @@ def config(size=256, **kw):
         compute_dtype="float32", detection_score_threshold=0.0, **kw)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and these tests' ops slow by 10-20x when each one waits on
-    threads the other workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
-def case(_one_thread):
+def case():
     cfg = config()
     params = make_params(cfg, SEED, "cpu")
     images = torch.from_numpy(np.random.default_rng(3).integers(
