@@ -42,6 +42,20 @@ Phases, each printing one JSON line, any failure ends the run non-zero
            to back and with L2 cold (`device_ms`, `device_ms_l2_cold`;
            `share_of_bound_l2_cold`: back-to-back calls keep a small map
            in L2, and `ms` of so short a call times the host)
+  VE       the ViT epilogue (`csrc/vit_epilogue.cu`, replaces no TPU
+           kernel) at `vitdet_b.batch8`'s shapes (batch 8, a 64x64 grid of
+           768 channels, windows of 14 padded to 70x70) on ViT-B
+           constants from the seed: the qkv bias over the padded windows
+           (VE_qkv), fc1's bias and GELU (VE_fc1), proj's bias, residual
+           add and LN2 from the windows into the grid (VE_proj_windowed),
+           fc2's bias, residual add and a global block's LN1
+           (VE_fc2_global), and a windowed block's LN1 written into its
+           padded windows (VE_fc2_windowed); against the plain version
+           (the layers' op sequence): the bias, GELU and the float32
+           stream bit for bit, the LayerNorm output within one bf16 ulp
+           of its largest term (`ln_ulp_share`: the share that differs),
+           with `ms`, `plain_ms`, the bytes bound and the kernel's device
+           time with L2 cold
   native   the host native library (`maskrcnn_tpu_torch/native`, g++ at
            first use): which of librle, libimageio (with or without its
            libjpeg entry points) and libevalmatch loaded, the build
@@ -144,6 +158,12 @@ Phases, each printing one JSON line, any failure ends the run non-zero
            K5 and K6 once a forward, the first graphed micro-batch equal
            to `run_batch`'s), batch-BN `train_step` (1 warm-up, 3 timed: a
            main path, K1 and K2)
+  vitdet   ViTDet-B @ 1024^2, 81 classes, bf16, random weights from the
+           seed: `run_batch` at `vitdet_b.batch8`'s batch 8 and score
+           threshold 0 (a main path, counted as above: the ViT epilogue
+           48 times a forward, K1 and K2, never K3, K4 or the conv
+           epilogue), the forward's time and profile; the ViT epilogue
+           must run on no other path
   export   `io/export.py`: the R101-FPN @ 1024^2 forward exported on the
            card at batch 1 (trace seconds, program bytes), reloaded in this
            process (a main path: K1-K4) and in a new one, each within 1e-4
@@ -171,12 +191,12 @@ Phases, each printing one JSON line, any failure ends the run non-zero
            phase has the times); its JSON lines
 
 then a `kernels` line (each kernel's launches on the e2e or stream path,
-on every path in `launches_by_path`, for K1-K4 and EP their numbers at
-the serve_probe path's batch in `serve_probe_batch`, per training step of
-each training configuration in `train_launches_per_step`, and for K2-K4
-the training
-Function's forward and backward times and its forward's error), the
-nvidia-smi line, and last
+VE's on the vitdet path, on every path in `launches_by_path`, for K1-K4
+and EP their numbers at the serve_probe path's batch in
+`serve_probe_batch`, per training step of each training configuration in
+`train_launches_per_step`, and for K2-K4 the training Function's forward
+and backward times and its forward's error), the nvidia-smi line, and
+last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -910,6 +930,128 @@ def check_conv_epilogue(dev, rng, batch, params):
     return rows
 
 
+# (row, form, the block whose linear it finishes, its dense layer, y in
+# the padded windows, the LayerNorm after it: the layer, in the windows) at
+# `vitdet_b.batch8`'s shapes; block 0 is windowed, block 2 global
+VE_ROWS = (("VE_qkv", "bias", 0, "attn_qkv", True, None, False),
+           ("VE_fc1", "bias_gelu", 0, "mlp_fc1", False, None, False),
+           ("VE_proj_windowed", "residual", 0, "attn_proj", True,
+            "vit_b0_norm2", False),
+           ("VE_fc2_global", "residual", 1, "mlp_fc2", False,
+            "vit_b2_norm1", False),
+           ("VE_fc2_windowed", "residual", 0, "mlp_fc2", False,
+            "vit_b1_norm1", True))
+# float operations an element: the bias add; GELU's three multiplies, add
+# and erf (counted as 8); the residual add and the LayerNorm's sum,
+# deviation, square, sum and normalised multiply-add
+VE_OPS = {"bias": 1, "bias_gelu": 13, "residual": 8}
+# LayerNorm outputs that may differ from the layers', as a share of the
+# elements (`tests/test_torch_gpu.py`'s LN_ULP_SHARE): the statistics are
+# summed in another order, so a value at a bf16 rounding boundary may
+# round the other way; a sloppier reduction differs in far more
+VE_LN_ULP_SHARE = 1e-3
+
+
+def check_vit_epilogue(dev, seed):
+    """The ViT epilogue's forms at `vitdet_b.batch8`'s shapes on ViT-B
+    constants from the seed (LayerNorms drawn off the identity) against
+    their plain version (the layers' op sequence) on the same inputs: the
+    bias, GELU and x' bit for bit, the LayerNorm output within one bf16
+    ulp of its largest term (`ln_ulp_max`) with at most VE_LN_ULP_SHARE of
+    its elements differing (`ln_ulp_share`). `bound_ms` is the bytes the
+    kernel reads and writes at the HBM rate (of y in the windows, proj's
+    pass reads only the grid's tokens); each map is larger than L2, and
+    `device_ms_l2_cold` is the kernel's own time (profiler) after L2 is
+    flushed."""
+    from maskrcnn_tpu_torch.models import vit
+    from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
+    gen = torch.Generator().manual_seed(seed)
+    params = vit.init_vit(gen, "vitdet_b", (1024, 1024))
+    b, grid, win, c = 8, 64, 14, 768
+    nwin = b * 25
+    dg = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for name, form, block, layer, y_win, norm_name, norm_win in VE_ROWS:
+        dense = {k: t.to(dev) for k, t in
+                 params[f"vit_b{block}_{layer}"].items()}
+        consts = ve.prepare(dense)
+        cout = consts.bias.shape[0]
+        shape = ((nwin, win * win, cout) if y_win and form == "bias" else
+                 (nwin, win, win, cout) if y_win else (b, grid, grid, cout))
+        y = (torch.randn(shape, generator=dg, device=dev) * 2).to(
+            torch.bfloat16)
+        x = torch.randn((b, grid, grid, c), generator=dg, device=dev) * 4
+        norm = None if norm_name is None else {
+            "scale": torch.rand(c, generator=dg, device=dev) + 0.5,
+            "bias": torch.randn(c, generator=dg, device=dev) * 0.2}
+        kw = {"window": win if y_win or norm_win else 0,
+              "norm_windowed": norm_win}
+        fn = {"bias": ve.BIAS, "bias_gelu": ve.BIAS_GELU,
+              "residual": ve.BIAS_RESIDUAL_NORM}[form]
+        if form == "bias":
+            call = lambda: [ve.bias(y, consts)]
+        elif form == "bias_gelu":
+            call = lambda: [ve.bias_gelu(y, consts)]
+        else:
+            call = lambda: [t for t in ve.bias_residual_norm(
+                y, consts, x, norm, vit.LN_EPS, **kw) if t is not None]
+        scale = None if norm is None else norm["scale"]
+        shift = None if norm is None else norm["bias"]
+        plain = lambda: ve.epilogue_plain(
+            y, consts.bias, fn, x if form == "residual" else None, scale,
+            shift, kw["window"], kw["norm_windowed"], vit.LN_EPS)
+        got, want = call(), plain()
+        first = (torch.equal(got[0].view(torch.int16),
+                             want[0].view(torch.int16))
+                 if got[0].dtype == torch.bfloat16 else
+                 torch.equal(got[0].view(torch.int32),
+                             want[0].view(torch.int32)))
+        ulp_max, ulp_share = 0.0, 0.0
+        if len(got) > 1:
+            # in bf16 ulps at the magnitude of the LayerNorm's largest
+            # term (the output, gamma * x_hat or beta): where gamma * x_hat
+            # and beta cancel, an ulp of difference in the float32
+            # statistics moves the small output by many of its own ulps
+            g1, w1 = got[1].float(), want[1].float()
+            x_hat = F.layer_norm(want[0], (c,), eps=vit.LN_EPS)
+            if norm_win:
+                x_hat, _ = vit.window_partition(x_hat, win)
+            big = torch.maximum(torch.maximum(g1.abs(), w1.abs()),
+                                torch.maximum((scale * x_hat).abs(),
+                                              shift.abs().expand_as(x_hat)))
+            ulp_max = float(((g1 - w1).abs() / bf16_ulp(big)).max())
+            ulp_share = float((g1 != w1).float().mean())
+            del x_hat, big
+        err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(got, want))
+        ms = cuda_ms(call, 20)
+        cold = device_ms_l2_cold(call, "vit_epilogue")
+        # the elements of y the kernel reads: a windowed proj output's pad
+        # tokens are skipped
+        read = (b * grid * grid * cout if form == "residual" else
+                y.numel())
+        moved = read * y.element_size() + nbytes(
+            dense["bias"].to(torch.bfloat16), *got) + (
+            nbytes(x) + (2 * nbytes(scale) if norm else 0)
+            if form == "residual" else 0)
+        bnd = bound(moved, float(read * VE_OPS[form]), F32_FLOPS)
+        rows.append(record(
+            name, "cuda", "maskrcnn_tpu_torch/csrc/vit_epilogue.cu",
+            "none (the JAX package leaves these layers to XLA)", ms,
+            cuda_ms(plain, 5), err, 0.0, bnd, None,
+            {"device_ms_l2_cold": cold,
+             "share_of_bound_l2_cold": cold and bnd[0] / cold,
+             "shape": list(y.shape), "layer": f"vit_b{block}_{layer}",
+             "norm": norm_name, "norm_in_windows": norm_win,
+             "bytes": moved, "bit_equal": first,
+             "ln_ulp_max": ulp_max, "ln_ulp_share": ulp_share,
+             **kernels_per_call(call)},
+            ok=first and ulp_max <= 1.0 and ulp_share <= VE_LN_ULP_SHARE))
+        del y, x, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
 # --------------------------------------------------------------------------
 # forward on the card vs the CPU, and the detector end to end
 # --------------------------------------------------------------------------
@@ -948,7 +1090,9 @@ KERNEL_GROUPS = (("K1 nms", ("nms_mask_kernel", "nms_walk_kernel")),
                                              "split_sum_kernel")),
                  ("K6 roi_mask_head", ("mask_conv_kernel",
                                        "mask_deconv_kernel")),
-                 ("EP conv_epilogue", ("conv_epilogue_kernel",)))
+                 ("EP conv_epilogue", ("conv_epilogue_kernel",)),
+                 ("VE vit_epilogue", ("vit_epilogue_kernel",
+                                      "vit_epilogue_norm_kernel")))
 E2E_KERNELS = ("nms", "roi_align", "stem", "bottleneck",
                "conv_epilogue")
 STREAM_KERNELS = ("nms", "stem", "bottleneck", "roi_classifier_head",
@@ -2588,6 +2732,72 @@ def mnv2(dev, seed, batch, base, frames=8, timed_steps=3):
             "mnv2_train": launches_train}
 
 
+# ViTDet-B's forward: `vitdet_b.batch8`'s batch; the ViT epilogue's passes
+# a forward (4 a block of 12, block 0's LN1 the layers'), K1 and K2 (the
+# unfused heads), never a ResNet kernel
+VITDET_BATCH = 8
+VIT_PASSES = 48
+VITDET_NEVER = RESNET_ONLY + ("conv_epilogue",)
+
+
+def vitdet(dev, seed, base, batch=VITDET_BATCH):
+    """ViTDet-B @ 1024^2, 81 classes, bf16, at `vitdet_b.batch8`'s batch
+    and score threshold (0), random weights from the seed with live BN:
+    `run_batch` on `batch` canvases, one forward (a main path: counts
+    zeroed just before, read just after; VIT_PASSES ViT epilogue passes,
+    K1 and K2, never VITDET_NEVER), then the forward's time and
+    profile."""
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.ops import cuda_lib
+    from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
+    cfg = base.replace(architecture="vitdet_b",
+                       detection_score_threshold=0.0)
+    gen = torch.Generator().manual_seed(seed)
+    params = M.init_mask_rcnn(gen, cfg)
+    live_bn(params, gen)
+    det = MaskRCNNDetector(cfg, params, device=dev)
+    size = cfg.image_height
+    canvases = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0, 255, (batch, size, size, 3)).astype(np.float32))
+    det.run_batch(canvases)                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    out = det.run_batch(canvases)                              # main path
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    peak = torch.cuda.max_memory_allocated()
+    lat = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.run_batch(canvases)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    profile = profile_forward(det, canvases)
+    finite = all(bool(torch.isfinite(out[k].float()).all())
+                 for k in ("detections", "masks", "rois"))
+    valid = out["valid"].sum(-1).tolist()
+    emit({"phase": "vitdet", "config": describe(cfg), "batch_size": batch,
+          "forward_batch_ms": lat, "max_memory_allocated_bytes": peak,
+          "finite": finite, "detections": valid, "profile": profile,
+          "launches": launches})
+    problems = []
+    if not finite or min(valid) != cfg.max_detections:
+        problems.append(f"finite {finite}, detections {valid}")
+    if launches["vit_epilogue"] != VIT_PASSES:
+        problems.append(f"{launches['vit_epilogue']} ViT epilogue passes "
+                        f"in one forward, not {VIT_PASSES}")
+    missing = [k for k in MNV2_KERNELS if launches[k] == 0]
+    extra = [k for k in VITDET_NEVER if launches[k]]
+    if missing or extra:
+        problems.append(f"launched {launches}: missing {missing}, "
+                        f"unexpected {extra}")
+    if problems:
+        raise AssertionError(f"vitdet: {problems}")
+    return {"vitdet": launches}
+
+
 EXPORT_TOL = 1e-4
 EXPORT_KERNELS = ("nms", "roi_align", "stem", "bottleneck",
                   "conv_epilogue")
@@ -3080,9 +3290,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="the device, build, K1..K6 and EP phases, then a "
-                         "kernels line without launches and no result "
-                         "line: two kernel builds compared in one call")
+                    help="the device, build, K1..K6, EP and VE phases, "
+                         "then a kernels line without launches and no "
+                         "result line: two kernel builds compared in one "
+                         "call")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3122,6 +3333,7 @@ def main() -> int:
     rows += check_stem(dev, rng, args.batch, params)
     rows += check_chains(dev, rng, args.batch, params)
     rows += check_conv_epilogue(dev, rng, args.batch, params)
+    rows += check_vit_epilogue(dev, args.seed)
     # K1-K4 and EP again at the serve_probe path's batch, held the same way
     at_probe = serve_probe_checks(dev, rng, SERVE_PROBE_MAX_BATCH, params)
     del params
@@ -3150,6 +3362,8 @@ def main() -> int:
     full = MaskRCNNConfig()            # R101-FPN @ 1024^2, 81 classes, bf16
     by_path.update(mnv2(dev, args.seed, args.batch, full))
     torch.cuda.empty_cache()
+    by_path.update(vitdet(dev, args.seed, full))
+    torch.cuda.empty_cache()
     by_path.update(export_phase(dev, args.seed, full))
     torch.cuda.empty_cache()
     by_path.update(dp(dev, args.seed, args.batch, full))
@@ -3171,11 +3385,16 @@ def main() -> int:
 
     family = {"K1": "nms", "K2": "roi_align", "K3": "stem", "K4": "bottleneck",
               "K5": "roi_classifier_head", "K6": "roi_mask_head",
-              "EP": "conv_epilogue"}
+              "EP": "conv_epilogue", "VE": "vit_epilogue"}
+    stray = {p: n["vit_epilogue"] for p, n in by_path.items()
+             if p != "vitdet" and n.get("vit_epilogue")}
+    if stray:
+        raise AssertionError(f"the ViT epilogue ran off ViTDet-B: {stray}")
     for row in rows:
         key = family[row["name"][:2]]
         row["launches"] = (launches_stream if key in ("roi_classifier_head",
                                                       "roi_mask_head")
+                           else by_path["vitdet"] if key == "vit_epilogue"
                            else launches)[key]
         row["launches_by_path"] = {p: n[key] for p, n in by_path.items()}
         row["train_launches_per_step"] = {c: n[key]

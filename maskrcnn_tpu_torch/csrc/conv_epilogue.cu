@@ -35,18 +35,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <cstdint>
+#include "epilogue_common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using epilogue::round_bf16;
 
 constexpr int kThreads = 256;
 constexpr int kForms = 3;
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // torch.relu on CUDA: clamp_min(v, 0), which returns a NaN as it is and
 // otherwise max(v, 0) in float.
@@ -144,10 +141,6 @@ constexpr Kernel kKernels[kForms] = {conv_epilogue_kernel<0>,
                                      conv_epilogue_kernel<1>,
                                      conv_epilogue_kernel<2>};
 
-int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
-
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
-
 }  // namespace
 
 extern "C" {
@@ -161,6 +154,7 @@ int mrt_conv_epilogue(const void* y, const void* res, const void* bias,
                       const void* scale, const void* shift, const void* rbias,
                       const void* rscale, const void* rshift, void* out,
                       int rows, int channels, int form, void* stream) {
+  using epilogue::aligned16;
   if (form < 0 || form >= kForms || channels <= 0 || channels % 8 ||
       rows < 0 || !aligned16(y) || !aligned16(bias) || !aligned16(scale) ||
       !aligned16(shift) || !aligned16(out) || (form && !aligned16(res)) ||
@@ -169,31 +163,13 @@ int mrt_conv_epilogue(const void* y, const void* res, const void* bias,
     return (int)cudaErrorInvalidValue;
   }
   if (rows == 0) return 0;
-  // Blocks that fit on the card at once, worked out once per device and
-  // form (the queries cost more host time than a small launch takes).
-  static int grid_dev[kForms] = {-1, -1, -1}, grid_max[kForms] = {0, 0, 0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static epilogue::Residency fits[kForms];
+  int fit = 0;
+  const cudaError_t err = fits[form].get(
+      reinterpret_cast<const void*>(kKernels[form]), kThreads, &fit);
   if (err != cudaSuccess) return (int)err;
-  if (dev != grid_dev[form]) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kKernels[form], kThreads, 0);
-    }
-    if (err != cudaSuccess) return (int)err;
-    grid_max[form] = sms * per_sm;
-    grid_dev[form] = dev;
-  }
-  // One 16-byte slice a thread, no more blocks than fit; then rounded up so
-  // the grid's threads are a multiple of the row's slices (threads past the
-  // last row do nothing).
   const int slices = channels / 8;
-  const long want = ((long)rows * slices + kThreads - 1) / kThreads;
-  const int unit = slices / gcd(slices, kThreads);
-  long grid = want < grid_max[form] ? want : grid_max[form];
-  grid = (grid + unit - 1) / unit * unit;
+  const long grid = epilogue::slice_grid(rows, slices, kThreads, fit);
   kKernels[form]<<<(int)grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const bf16*)y, (const bf16*)res, (const bf16*)bias,
       (const float*)scale, (const float*)shift, (const bf16*)rbias,

@@ -32,6 +32,17 @@ added in it, as `models/nn.py` does; GELU runs on the compute dtype's
 values and is rounded to it; attention is `ops/attention.py`'s (on the
 card in bfloat16: q', k', v and the output rounded to it, the softmax
 float32). The float32 route is the plain reference's arithmetic.
+
+On the card in bfloat16 the blocks take the fused route (`_attention_fused`,
+`_mlp_fused`): the four linears are `torch.matmul` on bf16 kernels and
+biases prepared once per parameter set, each finished by one
+`vit_epilogue` pass (`ops/vit_epilogue_cuda.py`): the bias after qkv; bias
+and GELU after fc1; bias and residual add after proj and fc2, with the
+LayerNorm that follows (LN2 after proj, the next block's LN1 after fc2)
+written in bf16 in the layout the next linear reads, the padded windows of
+a windowed block included. Block 0's LN1 stays the layers'. The bias, GELU
+and residual stream are the layers' bit for bit, a LayerNorm output within
+one bf16 ulp.
 """
 
 from __future__ import annotations
@@ -43,7 +54,10 @@ import torch
 import torch.nn.functional as F
 
 from maskrcnn_tpu_torch.models import nn
+from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
 from maskrcnn_tpu_torch.ops.attention import rel_pos_attention
+from maskrcnn_tpu_torch.ops.common import (window_partition,
+                                           window_unpartition)
 from maskrcnn_tpu_torch.utils.profiling import stage
 
 LN_EPS = 1e-6
@@ -143,26 +157,23 @@ def position_table(table: torch.Tensor, spec: ViTSpec, grid) -> torch.Tensor:
     return pos
 
 
-def window_partition(x: torch.Tensor, window: int):
-    """(B, H, W, C) -> (B * nh * nw, window, window, C), zero-padded on
-    the bottom and right; also the padded (Hp, Wp)."""
-    b, h, w, c = x.shape
-    ph, pw = -h % window, -w % window
-    if ph or pw:
-        x = F.pad(x, (0, 0, 0, pw, 0, ph))
-    hp, wp = h + ph, w + pw
-    x = x.view(b, hp // window, window, wp // window, window, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window, window, c), \
-        (hp, wp)
+def _window(spec: ViTSpec, i: int) -> int:
+    """Block `i`'s window side, 0 for a global block."""
+    return 0 if i in spec.global_blocks else spec.window
 
 
-def window_unpartition(x: torch.Tensor, window: int, padded, hw):
-    """`window_partition`'s inverse, the padding cropped."""
-    (hp, wp), (h, w) = padded, hw
-    b = x.shape[0] // (hp // window * wp // window)
-    x = x.view(b, hp // window, wp // window, window, window, -1)
-    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, -1)
-    return x[:, :h, :w]
+def _attend(qkv, params, spec: ViTSpec, i: int, grid):
+    """(n, h w, 3 C) qkv of block `i` -> the heads' attention over each
+    (h, w) grid, (n, h, w, C), before proj."""
+    n, t, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // spec.heads
+    q, k, v = qkv.view(n, t, 3, spec.heads, hd).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    rel = params[f"vit_b{i}_attn_rel_pos"]
+    o = rel_pos_attention(q, k, v, rel["rel_pos_h"], rel["rel_pos_w"],
+                          grid, hd ** -0.5)
+    return o.transpose(1, 2).reshape(n, *grid, c)
 
 
 def _attention(x, params, spec: ViTSpec, i: int, dtype):
@@ -173,15 +184,9 @@ def _attention(x, params, spec: ViTSpec, i: int, dtype):
     if windowed:
         y, padded = window_partition(y, spec.window)
     n, gh, gw, c = y.shape
-    hd = c // spec.heads
     qkv = nn.dense(y.reshape(n, gh * gw, c), params[b + "attn_qkv"],
                    dtype=dtype)
-    q, k, v = qkv.view(n, gh * gw, 3, spec.heads, hd).permute(
-        2, 0, 3, 1, 4).unbind(0)
-    rel = params[b + "attn_rel_pos"]
-    o = rel_pos_attention(q, k, v, rel["rel_pos_h"], rel["rel_pos_w"],
-                          (gh, gw), hd ** -0.5)
-    o = nn.dense(o.transpose(1, 2).reshape(n, gh, gw, c),
+    o = nn.dense(_attend(qkv, params, spec, i, (gh, gw)),
                  params[b + "attn_proj"], dtype=dtype)
     if windowed:
         o = window_unpartition(o, spec.window, padded, x.shape[1:3])
@@ -194,6 +199,43 @@ def _mlp(x, params, i: int, dtype):
                  dtype=dtype)
     y = nn.dense(F.gelu(y), params[b + "mlp_fc2"], dtype=dtype)
     return x + y.float()
+
+
+def _attention_fused(x, y, params, spec: ViTSpec, i: int):
+    """`_attention` on the card in bf16, and LN2 of its result: (x', LN2(x')
+    in bf16). `y` is LN1(x) in bf16 in the block's layout (its padded
+    windows, or the grid), from the previous block's fc2 pass; None for
+    block 0, whose LN1 is the layers'."""
+    b = f"vit_b{i}_"
+    win = _window(spec, i)
+    if y is None:
+        y = layer_norm(x, params[b + "norm1"])
+        if win:
+            y, _ = window_partition(y, win)
+        y = y.to(torch.bfloat16)
+    n, gh, gw, c = y.shape
+    qkv, proj = (ve.prepare(params[b + name])
+                 for name in ("attn_qkv", "attn_proj"))
+    o = _attend(ve.bias(y.reshape(n, gh * gw, c) @ qkv.kernel, qkv),
+                params, spec, i, (gh, gw))
+    return ve.bias_residual_norm(o @ proj.kernel, proj, x,
+                                 params[b + "norm2"], LN_EPS, window=win)
+
+
+def _mlp_fused(x, y, params, spec: ViTSpec, i: int):
+    """`_mlp` on the card in bf16 from `y` = LN2(x) in bf16, and the next
+    block's LN1 of its result in that block's layout: (x', LN1(x') in
+    bf16), (x', None) after the last block."""
+    b = f"vit_b{i}_"
+    fc1, fc2 = (ve.prepare(params[b + name]) for name in ("mlp_fc1",
+                                                          "mlp_fc2"))
+    h = ve.bias_gelu(y @ fc1.kernel, fc1)
+    if i + 1 == spec.depth:
+        return ve.bias_residual_norm(h @ fc2.kernel, fc2, x)
+    return ve.bias_residual_norm(h @ fc2.kernel, fc2, x,
+                                 params[f"vit_b{i + 1}_norm1"], LN_EPS,
+                                 window=_window(spec, i + 1),
+                                 norm_windowed=True)
 
 
 def _pyramid(x, params, dtype):
@@ -220,7 +262,9 @@ def apply_vit(params, images: torch.Tensor, architecture: str,
     """(B, H, W, 3) preprocessed images -> (P2, P3, P4, P5, P6), NHWC in
     `dtype`. Spans: `vit.patch_embed`, per block `vit.window_attention` or
     `vit.global_attention` (args `tokens` a window or the grid, `windows`
-    an image) and `vit.mlp`, then `vit.pyramid`."""
+    an image) and `vit.mlp`, then `vit.pyramid`; on the fused route a
+    block's LN2 is computed inside its attention span and the next block's
+    LN1 inside its `vit.mlp` span."""
     spec = VIT[architecture]
     with stage("vit.patch_embed"):
         x = nn.conv2d(images.to(dtype), params["vit_patch_embed"],
@@ -230,6 +274,9 @@ def apply_vit(params, images: torch.Tensor, architecture: str,
                                        spec, grid)
     nwin = math.ceil(grid[0] / spec.window) * math.ceil(grid[1] /
                                                         spec.window)
+    fused = ve.epilogue_supported(x, dtype, spec.width)
+    if fused:
+        x, y = x.contiguous(), None
     for i in range(spec.depth):
         if i in spec.global_blocks:
             span = stage("vit.global_attention", tokens=grid[0] * grid[1],
@@ -238,8 +285,14 @@ def apply_vit(params, images: torch.Tensor, architecture: str,
             span = stage("vit.window_attention", tokens=spec.window ** 2,
                          windows=nwin)
         with span:
-            x = _attention(x, params, spec, i, dtype)
+            if fused:
+                x, y = _attention_fused(x, y, params, spec, i)
+            else:
+                x = _attention(x, params, spec, i, dtype)
         with stage("vit.mlp"):
-            x = _mlp(x, params, i, dtype)
+            if fused:
+                x, y = _mlp_fused(x, y, params, spec, i)
+            else:
+                x = _mlp(x, params, i, dtype)
     with stage("vit.pyramid"):
         return _pyramid(x, params, dtype)

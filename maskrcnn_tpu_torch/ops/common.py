@@ -3,10 +3,13 @@
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.weak import WeakIdKeyDictionary
 
 
 def round_up(x: int, m: int) -> int:
@@ -35,6 +38,29 @@ def constant_cache(build: Callable) -> Callable:
 
     get.cache_clear = cached.cache_clear
     return get
+
+
+class ParamCache:
+    """Values built from parameter tensors (a layer's prepared constants),
+    kept while the first tensor lives: an entry goes with that tensor, and
+    the cache keeps no parameter set alive. A value is built anew where
+    one of its tensors was replaced or changed in place
+    (`Tensor._version`). Callers bypass it while `tracing()`."""
+
+    def __init__(self):
+        # first tensor -> (each tensor's weak reference and version, value)
+        self._entries = WeakIdKeyDictionary()
+
+    def get(self, tensors: Sequence[torch.Tensor], build: Callable):
+        entry = self._entries.get(tensors[0])
+        if entry is not None and all(
+                ref() is t and version == t._version
+                for (ref, version), t in zip(entry[0], tensors)):
+            return entry[1]
+        value = build()
+        self._entries[tensors[0]] = (tuple((weakref.ref(t), t._version)
+                                           for t in tensors), value)
+        return value
 
 
 def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
@@ -68,3 +94,26 @@ def graph_vjp(graph: Callable, tensors: Sequence[torch.Tensor],
         got = iter(torch.autograd.grad(out, wanted, grad_out.to(out.dtype),
                                        allow_unused=True) if wanted else ())
         return tuple(next(got) if n else None for n in needs)
+
+
+def window_partition(x: torch.Tensor, window: int):
+    """A ViT's windowed layout (`models/vit.py`, `vit_epilogue_cuda`):
+    (B, H, W, C) -> (B * nh * nw, window, window, C), zero-padded on the
+    bottom and right; also the padded (Hp, Wp)."""
+    b, h, w, c = x.shape
+    ph, pw = -h % window, -w % window
+    if ph or pw:
+        x = F.pad(x, (0, 0, 0, pw, 0, ph))
+    hp, wp = h + ph, w + pw
+    x = x.view(b, hp // window, window, wp // window, window, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window, window, c), \
+        (hp, wp)
+
+
+def window_unpartition(x: torch.Tensor, window: int, padded, hw):
+    """`window_partition`'s inverse, the padding cropped."""
+    (hp, wp), (h, w) = padded, hw
+    b = x.shape[0] // (hp // window * wp // window)
+    x = x.view(b, hp // window, wp // window, window, window, -1)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, -1)
+    return x[:, :h, :w]

@@ -30,15 +30,13 @@ helpers `nn.conv2d` and `nn.batch_norm` run on every forward
 
 from __future__ import annotations
 
-import weakref
 from typing import NamedTuple
 
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from maskrcnn_tpu_torch.models import nn
 from maskrcnn_tpu_torch.ops import cuda_lib
-from maskrcnn_tpu_torch.ops.common import tracing
+from maskrcnn_tpu_torch.ops.common import ParamCache, tracing
 
 
 class LayerConstants(NamedTuple):
@@ -59,9 +57,7 @@ def _build(conv: dict, bn: dict) -> LayerConstants:
                           scale, shift)
 
 
-# conv kernel tensor -> (the six tensors' weak references and versions,
-# their constants); an entry goes with its kernel tensor
-_prepared = WeakIdKeyDictionary()
+_prepared = ParamCache()
 
 
 def prepare(conv: dict, bn: dict) -> LayerConstants:
@@ -72,17 +68,9 @@ def prepare(conv: dict, bn: dict) -> LayerConstants:
     so a trace's placeholders never reach an eager call."""
     if tracing():
         return _build(conv, bn)
-    tensors = (conv["kernel"], conv["bias"], bn["gamma"], bn["beta"],
-               bn["moving_mean"], bn["moving_variance"])
-    entry = _prepared.get(tensors[0])
-    if entry is not None and all(
-            ref() is t and version == t._version
-            for (ref, version), t in zip(entry[0], tensors)):
-        return entry[1]
-    consts = _build(conv, bn)
-    _prepared[tensors[0]] = (tuple((weakref.ref(t), t._version)
-                                   for t in tensors), consts)
-    return consts
+    return _prepared.get((conv["kernel"], conv["bias"], bn["gamma"],
+                          bn["beta"], bn["moving_mean"],
+                          bn["moving_variance"]), lambda: _build(conv, bn))
 
 
 def epilogue_plain(y: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,

@@ -28,19 +28,24 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD = os.path.join(os.path.dirname(os.path.dirname(__file__)), "build")
 SOURCES = ("nms.cu", "roi_align.cu", "stem.cu", "bottleneck.cu",
-           "roi_classifier_head.cu", "roi_mask_head.cu", "conv_epilogue.cu")
-HEADERS = ("roi_head_common.cuh", "head_gemm.cuh")
+           "roi_classifier_head.cu", "roi_mask_head.cu", "conv_epilogue.cu",
+           "vit_epilogue.cu")
+HEADERS = ("roi_head_common.cuh", "head_gemm.cuh",
+           "epilogue_common.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 # Per-source extra flags. NMS must equal the sequential greedy bit for bit,
 # and the conv epilogue the PyTorch passes it replaces: no FMA contraction
 # (the sources also spell it with __fmul_rn / __fadd_rn, this is the second
-# guard).
+# guard). The ViT epilogue keeps the default, as PyTorch's GELU is built: its
+# `erff` is then the same code, and its own arithmetic is spelt with
+# intrinsics.
 EXTRA_FLAGS = {"nms.cu": ("-fmad=false",),
                "conv_epilogue.cu": ("-fmad=false",)}
 
 launches = {"nms": 0, "roi_align": 0, "stem": 0, "bottleneck": 0,
-            "roi_classifier_head": 0, "roi_mask_head": 0, "conv_epilogue": 0}
+            "roi_classifier_head": 0, "roi_mask_head": 0, "conv_epilogue": 0,
+            "vit_epilogue": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -119,6 +124,8 @@ def _declare(lib) -> None:
         "mrt_bottleneck": [p, p, p, p, p, p, p, p, p, p,
                            i, i, i, i, i, i, i, p],
         "mrt_conv_epilogue": [p] * 9 + [i, i, i, p],
+        "mrt_vit_epilogue": [p, p, p, i, i, i, p],
+        "mrt_vit_epilogue_norm": [p] * 7 + [i] * 6 + [f, p],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)

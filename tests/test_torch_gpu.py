@@ -619,6 +619,291 @@ def test_gpu_forward_conv_epilogue_launches(arch, passes):
 
 
 # --------------------------------------------------------------------------
+# the ViT epilogue of ViTDet-B's linears
+# --------------------------------------------------------------------------
+
+# case -> (form, where y lies, where the LayerNorm output goes (None: no
+# LayerNorm), the channels y has)
+VIT_CASES = {"qkv_windowed": ("bias", "windows", None, 2304),
+             "qkv_global": ("bias", "grid", None, 2304),
+             "fc1": ("bias_gelu", "grid", None, 3072),
+             "proj_windowed": ("residual", "windows", "grid", 768),
+             "proj_global": ("residual", "grid", "grid", 768),
+             "fc2_to_windowed": ("residual", "grid", "windows", 768),
+             "fc2_to_global": ("residual", "grid", "grid", 768),
+             "fc2_last": ("residual", "grid", None, 768)}
+# `vitdet_b.batch8`: batch 8, a 64x64 grid, windows of 14 padded to 70x70
+VIT_B, VIT_GRID, VIT_WINDOW, VIT_WIDTH = 8, 64, 14, 768
+VIT_WINDOWS = VIT_B * 25
+
+
+def vit_epilogue_case(case, dev, seed=0):
+    """A raw GEMM output `y` in the case's layout (bf16, -0.0 and
+    infinities among it in the bias forms), its dense layer {kernel, bias}
+    (float32), the float32 stream `x` and a LayerNorm {scale, bias} with
+    the case's arguments for `bias_residual_norm`."""
+    form, y_at, norm_at, c = VIT_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = ((VIT_WINDOWS, VIT_WINDOW, VIT_WINDOW, c) if y_at == "windows"
+             else (VIT_B, VIT_GRID, VIT_GRID, c))
+    if form == "bias" and y_at == "windows":
+        shape = (VIT_WINDOWS, VIT_WINDOW ** 2, c)   # qkv's (n, tokens, 3C)
+    y = (torch.randn(shape, generator=g, device=dev) * 2).to(torch.bfloat16)
+    if form != "residual":
+        flat = y.view(-1)
+        flat[:4] = torch.tensor([-0.0, float("inf"), float("-inf"), 0.0])
+    dense = {"kernel": torch.randn((VIT_WIDTH, c), generator=g, device=dev),
+             "bias": torch.randn(c, generator=g, device=dev)}
+    x = torch.randn((VIT_B, VIT_GRID, VIT_GRID, VIT_WIDTH), generator=g,
+                    device=dev) * 4
+    norm = {"scale": torch.rand(VIT_WIDTH, generator=g, device=dev) + 0.5,
+            "bias": torch.randn(VIT_WIDTH, generator=g, device=dev) * 0.2}
+    kw = {"window": VIT_WINDOW if "windows" in (y_at, norm_at) else 0,
+          "norm_windowed": norm_at == "windows"}
+    return form, y, dense, x, (None if norm_at is None else norm), kw
+
+
+def vit_layers(form, y, dense, x, norm, window, norm_windowed):
+    """`models/vit.py`'s layers on the raw output: `nn.dense`'s bias add,
+    `F.gelu`, `window_unpartition`, the float32 residual add,
+    `layer_norm`, `window_partition` and the cast the next linear takes."""
+    from maskrcnn_tpu_torch.models import vit
+    t = y + dense["bias"].to(y.dtype)
+    if form == "bias":
+        return [t]
+    if form == "bias_gelu":
+        return [torch.nn.functional.gelu(t)]
+    if window and not norm_windowed:
+        pad = -(-VIT_GRID // window) * window
+        t = vit.window_unpartition(t, window, (pad, pad),
+                                   (VIT_GRID, VIT_GRID))
+    x = x + t.float()
+    if norm is None:
+        return [x]
+    n = vit.layer_norm(x, norm)
+    if window and norm_windowed:
+        n, _ = vit.window_partition(n, window)
+    return [x, n.to(torch.bfloat16)]
+
+
+def run_vit_epilogue(form, y, dense, x, norm, window, norm_windowed):
+    from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
+    consts = ve.prepare(dense)
+    if form == "bias":
+        return [ve.bias(y, consts)]
+    if form == "bias_gelu":
+        return [ve.bias_gelu(y, consts)]
+    x, n = ve.bias_residual_norm(y, consts, x, norm, 1e-6, window=window,
+                                 norm_windowed=norm_windowed)
+    return [x] if n is None else [x, n]
+
+
+def ln_ulps(got, want, x, norm, window):
+    """|got - want| of a LayerNorm output in bf16 ulps at the magnitude of
+    its largest term, elementwise: the output, gamma * x_hat or beta
+    (x_hat = LN(x) without scale and shift, in the output's layout). Where
+    gamma * x_hat and beta cancel, the output is far smaller than either,
+    and a float32 difference of an ulp in the statistics moves it by many
+    of its own ulps, though by less than one of the terms'."""
+    from maskrcnn_tpu_torch.models import vit
+    got, want = got.float(), want.float()
+    x_hat = torch.nn.functional.layer_norm(x, (x.shape[-1],), eps=1e-6)
+    if window:
+        x_hat, _ = vit.window_partition(x_hat, window)
+    big = torch.maximum(torch.maximum(got.abs(), want.abs()),
+                        torch.maximum((norm["scale"] * x_hat).abs(),
+                                      norm["bias"].abs().expand_as(x_hat)))
+    _, e = torch.frexp(big)
+    return (got - want).abs() / torch.ldexp(torch.ones_like(got), e - 8)
+
+
+# LayerNorm outputs that differ from `F.layer_norm`'s, as a share of the
+# elements: the statistics are summed in another order, so a float32
+# value at a bf16 rounding boundary may round the other way (1.4e-5 to
+# 1.9e-5 of them at `vitdet_b.batch8`'s shapes on an H100)
+LN_ULP_SHARE = 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(VIT_CASES))
+def test_gpu_vit_epilogue_matches_layers(case):
+    """Each form of the pass on the card against the layers' op sequence
+    on the same raw output, at `vitdet_b.batch8`'s shapes, in one launch:
+    the bias and GELU forms and the float32 stream x' bit for bit (-0.0
+    and infinities among the bias forms' inputs); the LayerNorm output
+    within one bf16 ulp of its largest term everywhere (`ln_ulps`), the
+    share that differs at most LN_ULP_SHARE, and the windowed output's
+    pad rows zero."""
+    dev = _card()
+    form, y, dense, x, norm, kw = vit_epilogue_case(case, dev)
+    cuda_lib.reset_launches()
+    got = run_vit_epilogue(form, y, dense, x, norm, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["vit_epilogue"] == 1
+    want = vit_layers(form, y, dense, x, norm, **kw)
+    assert [(t.shape, t.dtype) for t in got] == \
+        [(t.shape, t.dtype) for t in want]
+    if form != "residual":
+        assert torch.equal(_bits(got[0]), _bits(want[0]))
+        return
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    if norm is None:
+        return
+    ulps = ln_ulps(got[1], want[1], want[0], norm,
+                   kw["window"] if kw["norm_windowed"] else 0)
+    share = float((got[1] != want[1]).float().mean())
+    print(f"{case}: LayerNorm output differs in {share:.3e} of the "
+          f"elements, by at most {float(ulps.max())} ulp of its largest "
+          f"term")
+    assert float(ulps.max()) <= 1.0 and share <= LN_ULP_SHARE
+    if kw["norm_windowed"]:
+        # the last window of each image holds its 6 pad rows and columns
+        last = got[1].view(VIT_B, 25, VIT_WINDOW, VIT_WINDOW, -1)[:, -1]
+        assert float(last[:, 8:].abs().max()) == 0.0
+        assert float(last[:, :, 8:].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_gpu_vit_epilogue_refuses_what_it_cannot_take():
+    """The wrapper raises on channels that are not a multiple of 8, a
+    residual width other than the LayerNorm form's 768, a float32 or a
+    non-contiguous input, a y whose layout does not fit x and a windowed
+    LayerNorm output without the LayerNorm; the launch on an input off a
+    16-byte boundary: no fallback on the card."""
+    from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
+    dev = _card()
+    bf = torch.bfloat16
+    y = torch.randn((4, 12), device=dev).to(bf)
+    with pytest.raises(ValueError, match="channels % 8"):
+        ve.bias(y, ve.DenseConstants(None, torch.zeros(12, device=dev,
+                                                       dtype=bf)))
+    for width in (256, 1024):
+        x = torch.randn((1, 4, 4, width), device=dev)
+        dense = ve.DenseConstants(None, torch.zeros(width, device=dev,
+                                                    dtype=bf))
+        with pytest.raises(ValueError, match="width of 768"):
+            ve.bias_residual_norm(x.to(bf), dense, x)
+    x = torch.randn((1, 4, 4, 768), device=dev)
+    dense = ve.DenseConstants(None, torch.zeros(768, device=dev, dtype=bf))
+    with pytest.raises(ValueError, match="bfloat16"):
+        ve.bias_residual_norm(x, dense, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        ve.bias_residual_norm(x.to(bf).transpose(1, 2), dense, x)
+    with pytest.raises(ValueError, match="shape"):
+        ve.bias_residual_norm(x.to(bf), dense, x, window=3)
+    with pytest.raises(ValueError, match="needs the LayerNorm"):
+        ve.bias_residual_norm(x.to(bf), dense, x, window=3,
+                              norm_windowed=True)
+    flat = torch.randn(2 * 16 * 768 + 8, device=dev).to(bf)
+    off = flat[1:1 + 16 * 768].view(1, 4, 4, 768)     # 2 bytes off
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        ve.bias_residual_norm(off, dense, x)
+
+
+@pytest.mark.gpu
+def test_gpu_vit_epilogue_op_never_takes_the_plain_version(monkeypatch):
+    """`torch.ops.maskrcnn_tpu_torch.vit_epilogue` on CUDA tensors with the
+    plain version made to raise: the kernel runs (the launch count moves),
+    in each form."""
+    from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
+    dev = _card()
+
+    def refuse(*a, **k):
+        raise AssertionError("epilogue_plain reached on the card")
+
+    monkeypatch.setattr(ve, "epilogue_plain", refuse)
+    cuda_lib.reset_launches()
+    for case in ("qkv_global", "fc1", "proj_windowed", "fc2_last"):
+        form, y, dense, x, norm, kw = vit_epilogue_case(case, dev)
+        out = run_vit_epilogue(form, y, dense, x, norm, **kw)
+        assert all(t.is_cuda for t in out)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["vit_epilogue"] == 4
+
+
+def vit_case(dev, side=1024, b=2, seed=11):
+    """ViT-B's parameters at `side`^2 on `dev` with LayerNorms off the
+    identity and non-zero relative positions, and mean-subtracted
+    images."""
+    from maskrcnn_tpu_torch.models import vit
+    g = torch.Generator().manual_seed(seed)
+    params = vit.init_vit(g, "vitdet_b", (side, side))
+    for name, p in params.items():
+        if "norm" in name:
+            c = p["scale"].shape[0]
+            p["scale"] = torch.rand(c, generator=g) + 0.5
+            p["bias"] = torch.randn(c, generator=g) * 0.2
+        if name.endswith("rel_pos"):
+            for k in p:
+                p[k] = torch.randn(p[k].shape, generator=g) * 0.1
+    params = {k: {w: t.to(dev) for w, t in p.items()}
+              for k, p in params.items()}
+    images = (torch.rand((b, side, side, 3), generator=g) * 255 - 120)
+    return params, images.to(dev)
+
+
+# The fused ViT-B against the layers on the card, over P2-P6 (LayerNormed,
+# std ~1): the LayerNorm outputs that differ by one bf16 ulp (under
+# LN_ULP_SHARE of them) move the next linear's input, and the difference
+# travels through 12 blocks and the pyramid's bf16 convs: the largest
+# stays under this share of the largest output, the mean under a tenth of
+# it (on an H100: largest 0.0625 against an output of 7.125, means
+# 4.2e-3 to 5.7e-3)
+VIT_FORWARD_TOL = 2 ** -4
+
+
+@pytest.mark.gpu
+def test_gpu_vit_fused_route_matches_layers(monkeypatch):
+    """`apply_vit` at 1024^2, batch 2, in bf16 on the card: the fused route
+    (48 passes: 4 a block, block 0's LN1 the layers') against the layers
+    (gate closed, no pass) over P2-P6, within VIT_FORWARD_TOL of the
+    largest output; the largest and mean differences printed."""
+    from maskrcnn_tpu_torch.models import vit
+    from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
+    dev = _card()
+    params, images = vit_case(dev)
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        got = vit.apply_vit(params, images, "vitdet_b")
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["vit_epilogue"] == 48
+    monkeypatch.setattr(ve, "epilogue_supported", lambda *a: False)
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        want = vit.apply_vit(params, images, "vitdet_b")
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["vit_epilogue"] == 0
+    for level, (gt, w) in enumerate(zip(got, want), 2):
+        assert gt.dtype == w.dtype == torch.bfloat16
+        assert gt.shape == w.shape
+        big = float(w.float().abs().max())
+        err = (gt.float() - w.float()).abs()
+        print(f"P{level}: largest difference {float(err.max()):.4e}, mean "
+              f"{float(err.mean()):.4e}, largest output {big:.4e}")
+        assert float(err.max()) <= VIT_FORWARD_TOL * big
+        assert float(err.mean()) <= VIT_FORWARD_TOL / 10 * big
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,passes", [("vitdet_b", 48), ("resnet101", 0),
+                                         ("mobilenetv2", 0)])
+def test_gpu_forward_vit_epilogue_launches(arch, passes):
+    """One bf16 forward on the card launches the ViT epilogue four times a
+    ViT-B block but block 0's LN1 (48); R101 and MobileNetV2 never."""
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    dev = _card()
+    cfg = _tiny(architecture=arch)
+    params = M.init_mask_rcnn(torch.Generator().manual_seed(0), cfg)
+    images = torch.rand((1, 128, 128, 3),
+                        generator=torch.Generator().manual_seed(1)) * 255
+    cuda_lib.reset_launches()
+    M.forward(params, images, cfg, device=dev)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["vit_epilogue"] == passes
+
+
+# --------------------------------------------------------------------------
 # the kernels as custom ops, and the paths of MobileNetV2, export and DP
 # --------------------------------------------------------------------------
 

@@ -313,7 +313,8 @@ def test_wrappers_take_plain_version_on_cpu():
     assert e.shape == y.shape and e.dtype == torch.bfloat16
     assert set(cuda_lib.launches) == {"nms", "roi_align", "stem",
                                       "bottleneck", "roi_classifier_head",
-                                      "roi_mask_head", "conv_epilogue"}
+                                      "roi_mask_head", "conv_epilogue",
+                                      "vit_epilogue"}
     assert not any(cuda_lib.launches.values())
 
 
