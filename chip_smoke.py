@@ -164,6 +164,12 @@ Phases, each printing one JSON line, any failure ends the run non-zero
            48 times a forward, K1 and K2, never K3, K4 or the conv
            epilogue), the forward's time and profile; the ViT epilogue
            must run on no other path
+  swin     Swin-S @ 1024^2, 81 classes, bf16, random weights from the
+           seed: `run_batch` at `swin_s.batch8`'s batch 8 and score
+           threshold 0 (a main path: K1 and K2, never K3, K4, the conv
+           or the ViT epilogue; 24 calls of `ops/attention.py`'s card
+           route a forward and none of its plain route), the forward's
+           time and profile
   export   `io/export.py`: the R101-FPN @ 1024^2 forward exported on the
            card at batch 1 (trace seconds, program bytes), reloaded in this
            process (a main path: K1-K4) and in a new one, each within 1e-4
@@ -3285,6 +3291,71 @@ def serve_probe_checks(dev, rng, batch, params) -> dict:
         for r in rows}
 
 
+# Swin-S's forward: `swin_s.batch8`'s batch; one card attention call a
+# block (2 + 2 + 18 + 2), K1 and K2 (the unfused heads), no hand-written
+# pass in the backbone
+SWIN_BATCH = 8
+SWIN_ATTENTION_CALLS = 24
+SWIN_NEVER = RESNET_ONLY + ("conv_epilogue", "vit_epilogue")
+
+
+def swin(dev, seed, base, batch=SWIN_BATCH):
+    """Swin-S @ 1024^2, 81 classes, bf16, at `swin_s.batch8`'s batch and
+    score threshold (0), random weights from the seed: `run_batch` on
+    `batch` canvases, one forward (a main path: counts zeroed just before,
+    read just after; SWIN_ATTENTION_CALLS card attention calls and no
+    plain one, K1 and K2, never SWIN_NEVER), then the forward's time and
+    profile."""
+    from maskrcnn_tpu_torch.models import mask_rcnn as M
+    from maskrcnn_tpu_torch.ops import attention, cuda_lib
+    from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
+    cfg = base.replace(architecture="swin_s", detection_score_threshold=0.0)
+    gen = torch.Generator().manual_seed(seed)
+    det = MaskRCNNDetector(cfg, M.init_mask_rcnn(gen, cfg), device=dev)
+    size = cfg.image_height
+    canvases = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0, 255, (batch, size, size, 3)).astype(np.float32))
+    det.run_batch(canvases)                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    attention.reset_calls()
+    out = det.run_batch(canvases)                              # main path
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    calls = dict(attention.calls)
+    peak = torch.cuda.max_memory_allocated()
+    lat = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.run_batch(canvases)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    profile = profile_forward(det, canvases)
+    finite = all(bool(torch.isfinite(out[k].float()).all())
+                 for k in ("detections", "masks", "rois"))
+    valid = out["valid"].sum(-1).tolist()
+    emit({"phase": "swin", "config": describe(cfg), "batch_size": batch,
+          "forward_batch_ms": lat, "max_memory_allocated_bytes": peak,
+          "finite": finite, "detections": valid, "profile": profile,
+          "attention_calls": calls, "launches": launches})
+    problems = []
+    if not finite or min(valid) != cfg.max_detections:
+        problems.append(f"finite {finite}, detections {valid}")
+    if calls != {"card": SWIN_ATTENTION_CALLS, "plain": 0}:
+        problems.append(f"attention calls {calls} in one forward, not "
+                        f"{SWIN_ATTENTION_CALLS} on the card route")
+    missing = [k for k in MNV2_KERNELS if launches[k] == 0]
+    extra = [k for k in SWIN_NEVER if launches[k]]
+    if missing or extra:
+        problems.append(f"launched {launches}: missing {missing}, "
+                        f"unexpected {extra}")
+    if problems:
+        raise AssertionError(f"swin: {problems}")
+    return {"swin": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3363,6 +3434,8 @@ def main() -> int:
     by_path.update(mnv2(dev, args.seed, args.batch, full))
     torch.cuda.empty_cache()
     by_path.update(vitdet(dev, args.seed, full))
+    torch.cuda.empty_cache()
+    by_path.update(swin(dev, args.seed, full))
     torch.cuda.empty_cache()
     by_path.update(export_phase(dev, args.seed, full))
     torch.cuda.empty_cache()

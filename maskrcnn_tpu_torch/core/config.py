@@ -37,7 +37,8 @@ import math
 from typing import Any, Mapping, Sequence
 
 
-_VALID_ARCHITECTURES = ("resnet50", "resnet101", "mobilenetv2", "vitdet_b")
+_VALID_ARCHITECTURES = ("resnet50", "resnet101", "mobilenetv2", "vitdet_b",
+                        "swin_s")
 # Patch size of the ViT backbones: their input must be a multiple of it.
 _VIT_PATCH = {"vitdet_b": 16}
 

@@ -1,7 +1,8 @@
 """The Mask-RCNN inference forward, port of `maskrcnn_tpu/models/mask_rcnn.py`.
 
-preprocess -> ResNet (stem K3, chains K4) or MobileNetV2 -> FPN P2..P6,
-or ViTDet-B and its simple feature pyramid (`models/vit.py`) -> P2..P6 ->
+preprocess -> ResNet (stem K3, chains K4), MobileNetV2 or Swin
+(`models/swin.py`) -> FPN P2..P6, or ViTDet-B and its simple feature
+pyramid (`models/vit.py`) -> P2..P6 ->
 RPN -> proposals (NMS K1) -> pool-7 ROIAlign (K2) -> classifier head ->
 detection refine (NMS K1) -> pool-14 ROIAlign (K2) -> mask head with
 per-class select [-> on-device mask paste].
@@ -33,7 +34,8 @@ import torch
 
 from maskrcnn_tpu_torch.core.anchors import anchor_spec, generate_anchors
 from maskrcnn_tpu_torch.core.config import MaskRCNNConfig
-from maskrcnn_tpu_torch.models import fpn, heads, mobilenet, resnet, rpn, vit
+from maskrcnn_tpu_torch.models import (fpn, heads, mobilenet, resnet, rpn,
+                                      swin, vit)
 from maskrcnn_tpu_torch.ops.common import constant_cache, device_constant
 from maskrcnn_tpu_torch.ops.detection import refine_detections
 from maskrcnn_tpu_torch.ops.proposals import generate_proposals
@@ -69,12 +71,17 @@ def init_mask_rcnn(gen: torch.Generator,
                    config: MaskRCNNConfig) -> dict[str, Any]:
     """Random-init the flat Matterport-named parameter dict (CPU tensors);
     MobileNetV2 takes the JAX package's `mbv2_*` names, ViTDet `vit_*` and
-    `sfp_*` (`models/vit.py`)."""
+    `sfp_*` (`models/vit.py`), Swin `swin_*` (`models/swin.py`)."""
     params: dict[str, Any] = {}
     if config.architecture in vit.VIT:
         params.update(vit.init_vit(gen, config.architecture,
                                    (config.image_height, config.image_width),
                                    config.fpn_channels))
+    elif config.architecture in swin.SWIN:
+        params.update(swin.init_swin(gen, config.architecture))
+        params.update(fpn.init_fpn(
+            gen, config.fpn_channels,
+            c_channels=swin.SWIN[config.architecture].widths))
     elif config.architecture == "mobilenetv2":
         params.update(mobilenet.init_mobilenetv2(gen))
         params.update(fpn.init_fpn(gen, config.fpn_channels,
@@ -124,17 +131,22 @@ def backbone_fpn(params, images: torch.Tensor, config: MaskRCNNConfig,
     the layers; frozen BN takes K3/K4 through their autograd Functions
     when `config.train_fused_kernels` is set (`models/resnet.py`).
     MobileNetV2 has no kernel of its own (K3 and K4 are ResNet's) and
-    ignores `train_fused_kernels`, as the JAX package does. ViTDet has no
-    BatchNorm and makes its own pyramid; the port does not train it
-    (no drop-path), so `inference=False` raises for it."""
+    ignores `train_fused_kernels`, as the JAX package does. ViTDet and
+    Swin have no BatchNorm, and ViTDet makes its own pyramid; the port
+    trains neither (no drop-path), so `inference=False` raises for them."""
+    transformer = config.architecture in vit.VIT or \
+        config.architecture in swin.SWIN
+    if transformer and not inference:
+        raise ValueError(
+            f"architecture {config.architecture!r} runs inference only: "
+            "the port has no training path for it (no drop-path)")
     if config.architecture in vit.VIT:
-        if not inference:
-            raise ValueError(
-                f"architecture {config.architecture!r} runs inference only: "
-                "the port has no training path for it (no drop-path)")
         return vit.apply_vit(params, images, config.architecture,
                              dtype=dtype)
-    if config.architecture == "mobilenetv2":
+    if config.architecture in swin.SWIN:
+        c2, c3, c4, c5 = swin.apply_swin(params, images, config.architecture,
+                                         dtype=dtype)
+    elif config.architecture == "mobilenetv2":
         c2, c3, c4, c5 = mobilenet.apply_mobilenetv2(
             params, images, dtype=dtype, bn_ctx=bn_ctx)
     else:

@@ -53,7 +53,7 @@ class ParamCache:
 
     def get(self, tensors: Sequence[torch.Tensor], build: Callable):
         entry = self._entries.get(tensors[0])
-        if entry is not None and all(
+        if entry is not None and len(entry[0]) == len(tensors) and all(
                 ref() is t and version == t._version
                 for (ref, version), t in zip(entry[0], tensors)):
             return entry[1]
@@ -96,24 +96,52 @@ def graph_vjp(graph: Callable, tensors: Sequence[torch.Tensor],
         return tuple(next(got) if n else None for n in needs)
 
 
-def window_partition(x: torch.Tensor, window: int):
-    """A ViT's windowed layout (`models/vit.py`, `vit_epilogue_cuda`):
-    (B, H, W, C) -> (B * nh * nw, window, window, C), zero-padded on the
-    bottom and right; also the padded (Hp, Wp)."""
+def window_partition(x: torch.Tensor, window: int, shift: int = 0):
+    """A ViT's windowed layout (`models/vit.py`, `vit_epilogue_cuda`,
+    `models/swin.py`): (B, H, W, C) -> (B * nh * nw, window, window, C),
+    zero-padded on the bottom and right; also the padded (Hp, Wp). With
+    `shift` (Swin's shifted windows) the padded map is rolled by
+    (-shift, -shift) before it is cut."""
     b, h, w, c = x.shape
     ph, pw = -h % window, -w % window
     if ph or pw:
         x = F.pad(x, (0, 0, 0, pw, 0, ph))
+    if shift:
+        x = torch.roll(x, (-shift, -shift), (1, 2))
     hp, wp = h + ph, w + pw
     x = x.view(b, hp // window, window, wp // window, window, c)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window, window, c), \
         (hp, wp)
 
 
-def window_unpartition(x: torch.Tensor, window: int, padded, hw):
-    """`window_partition`'s inverse, the padding cropped."""
+def window_unpartition(x: torch.Tensor, window: int, padded, hw,
+                       shift: int = 0):
+    """`window_partition`'s inverse: the windows joined, rolled back by
+    (shift, shift), the padding cropped."""
     (hp, wp), (h, w) = padded, hw
     b = x.shape[0] // (hp // window * wp // window)
     x = x.view(b, hp // window, wp // window, window, window, -1)
     x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, -1)
+    if shift:
+        x = torch.roll(x, (shift, shift), (1, 2))
     return x[:, :h, :w]
+
+
+@constant_cache
+def shift_regions(padded: tuple[int, int], window: int, shift: int,
+                  device) -> torch.Tensor:
+    """(windows, window * window) int64: the region label of each token of
+    a shifted block's windows (Swin, arXiv:2103.14030), in
+    `window_partition(..., shift)`'s order. The rolled, padded (Hp, Wp)
+    map is cut into rows [0, Hp - window), [Hp - window, Hp - shift),
+    [Hp - shift, Hp) and columns alike, nine labels; two tokens of one
+    window attend to each other unmasked only where their labels agree."""
+    hp, wp = padded
+
+    def bands(n):
+        r = torch.arange(n, device=device)
+        return (r >= n - window).long() + (r >= n - shift).long()
+
+    labels = bands(hp)[:, None] * 3 + bands(wp)[None, :]
+    labels = labels.view(hp // window, window, wp // window, window)
+    return labels.permute(0, 2, 1, 3).reshape(-1, window * window)

@@ -1155,3 +1155,49 @@ def test_gpu_rel_pos_attention_card_route_matches_float32(block):
                         scale)
     assert float((unbiased - want[:1]).abs().mean()) > 8 * float(
         err[:1].mean())
+
+
+# --------------------------------------------------------------------------
+# Swin's window attention (ops/attention.py)
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shifted", [False, True], ids=["plain", "shifted"])
+@pytest.mark.parametrize("stage", ["stage1", "stage3"])
+def test_gpu_window_attention_card_route_matches_float32(stage, shifted):
+    """The card route (one bfloat16 SDPA call, the table and the region
+    mask folded into one additive mask) against the float32 plain route on
+    the same bfloat16-rounded q, k, v, at `swin_s.batch8`'s shapes: 8
+    images of stage 1's 1369 windows, 3 heads, or stage 3's 100 windows,
+    12 heads, 49 tokens of 32 channels. The gap is bfloat16's: the bias
+    rounded into the mask (2^-9 of a bias up to 1.5), the probabilities
+    and the output rounded to it; the largest may reach 2^-7 of the
+    largest output, the mean stays near 2^-11 of it. Dropping the table,
+    or in a shifted block the region mask (the roll kept), moves the
+    output out of both bounds' reach."""
+    from maskrcnn_tpu_torch.ops import attention as A
+    from maskrcnn_tpu_torch.tools.probe_attention import swin_case
+    _card()
+    grid, heads = {"stage1": (256, 3), "stage3": (64, 12)}[stage]
+    case = swin_case(8, grid, heads, shifted, seed=7)
+    q, k, v, table, window, scale, regions = case
+    A.reset_calls()
+    got = A.window_attention(*case)
+    assert A.calls == {"card": 1, "plain": 0}
+    assert got.dtype == torch.bfloat16 and got.shape == v.shape
+    want = torch.cat([A._window_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                      table, window, scale, regions)
+                      for i in range(8)])
+    big = float(want.abs().max())
+
+    def within(out):
+        err = (out.float() - want).abs()
+        return (float(err.max()) <= 2 ** -7 * big,
+                float(err.mean()) <= 2 ** -10 * big)
+
+    assert within(got) == (True, True)
+    assert within(A.window_attention(q, k, v, table * 0, window, scale,
+                                     regions)) != (True, True)
+    if shifted:
+        assert within(A.window_attention(q, k, v, table, window, scale,
+                                         None)) != (True, True)

@@ -1,0 +1,385 @@
+"""Swin-S in the port (`models/swin.py`, `ops/attention.py::window_attention`,
+`ops/common.py`'s shifted windows) on the CPU, at Swin-S's published widths
+and depth and inputs of 128^2 and 192^2 (grids 32, 16, 8, 4 and 48, 24, 12,
+6: every stage pads to a multiple of 7, and every shifted block's roll
+carries padding into its windows): the pyramid and the whole forward
+against the benchmark's plain float32 reference
+(`benchmark/reference/backbones/swin_s.py`, which imports nothing of the
+port) on the benchmark's seeded weights; the attention, the region mask
+and the bias index against loops written from the equations; the table,
+the shift and the mask each shown to matter; the entry points, the spans
+and the counter, the config check, the weight files and the training
+guard.
+
+One intra-op thread, by `tests/torch_support.py`'s rule."""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
+
+from benchmark.reference import model as R
+from benchmark.weights import make_params
+from maskrcnn_tpu_torch.core.config import MaskRCNNConfig, tiny_test_config
+from maskrcnn_tpu_torch.io import weights as W
+from maskrcnn_tpu_torch.models import mask_rcnn as M
+from maskrcnn_tpu_torch.models import swin
+from maskrcnn_tpu_torch.ops import attention as A
+from maskrcnn_tpu_torch.ops.common import (shift_regions, window_partition,
+                                           window_unpartition)
+from maskrcnn_tpu_torch.pipeline import stream
+from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
+from tests.torch_support import one_thread  # noqa: F401  (autouse)
+
+SEED = 2 ** 31 + 23
+# float32 on both sides: the port and the reference sum in other orders
+# (F.linear against matmul, F.layer_norm against its formula, the conv's
+# and the attention's contractions) through 24 blocks, three merges and
+# the FPN; their outputs (|max| ~19, std 2-4) part by ~3.7e-5 at this
+# file's seed and sizes, so 2e-4 leaves 5x room, and anything that
+# changes the arithmetic (the variants below) moves them by orders more.
+PYRAMID_ATOL = 2e-4
+
+
+def config(size=128, **kw):
+    return tiny_test_config().replace(
+        architecture="swin_s", input_image_shape=(size, size, 3),
+        compute_dtype="float32", detection_score_threshold=0.0, **kw)
+
+
+def images_for(size, n=2):
+    return torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (n, size, size, 3), dtype=np.uint8))
+
+
+@pytest.fixture(scope="module", params=[128, 192], ids=["128", "192"])
+def case(request):
+    cfg = config(request.param)
+    params = make_params(cfg, SEED, "cpu")
+    images = images_for(request.param)
+    A.reset_calls()
+    out = M.forward(params, images, cfg, device="cpu", with_features=True)
+    calls = dict(A.calls)
+    ref = R.backbone_fpn(params, images, cfg, R.Numerics("float32"))
+    return cfg, params, images, out, ref, calls
+
+
+def port_pyramid(params, images, cfg):
+    return M.backbone_fpn(params, M.preprocess(images, cfg), cfg,
+                          torch.float32)
+
+
+def pyramid_gap(got, ref) -> float:
+    return max(float((g.permute(0, 3, 1, 2) - r).abs().max())
+               for g, r in zip(got, ref))
+
+
+def test_pyramid_matches_the_reference(case):
+    cfg, _, _, out, ref, calls = case
+    assert [tuple(p.shape[1:3]) for p in out["pyramid"]] == \
+        list(cfg.feature_shapes)
+    assert all(p.shape[-1] == 256 for p in out["pyramid"])
+    assert pyramid_gap(out["pyramid"], ref) <= PYRAMID_ATOL
+    assert calls == {"card": 0, "plain": 24}
+
+
+def test_forward_matches_the_references_detect(case):
+    """The reference's own pipeline from the same weights gives the port's
+    proposals and detections (float32 both). The masks are held to the
+    reference's mask head at the port's own boxes, as the benchmark's
+    judge holds them (`benchmark/reference/check.py`): a box clipped to
+    the canvas puts its last ROIAlign sample exactly on the level's edge,
+    where a 1e-6 change of the box flips the sample outside (zero)."""
+    cfg, params, images, out, ref, _ = case
+    want = R.detect(params, images, cfg, R.Numerics("float32"))
+    assert out["valid"].any()
+    assert torch.equal(want["valid"], out["valid"])
+    assert torch.equal(want["roi_valid"], out["roi_valid"])
+    torch.testing.assert_close(want["rois"], out["rois"], atol=1e-5, rtol=0)
+    torch.testing.assert_close(want["detections"], out["detections"],
+                               atol=1e-4, rtol=1e-4)
+    for i in range(images.shape[0]):
+        dets = out["detections"][i]
+        pooled = R.roi_align([p[i:i + 1] for p in ref[:4]],
+                             dets[None, :, :4], cfg.mask_pool_size, cfg)[0]
+        masks = R.mask_head(params, pooled, dets[:, 4].long(),
+                            R.Numerics("float32"))
+        valid = out["valid"][i]
+        torch.testing.assert_close(out["masks"][i][valid], masks[valid],
+                                   atol=1e-4, rtol=0)
+
+
+def _bias_dropped(monkeypatch):
+    orig = swin.window_attention
+    monkeypatch.setattr(swin, "window_attention",
+                        lambda q, k, v, table, *a: orig(q, k, v, table * 0,
+                                                        *a))
+
+
+def _no_shift(monkeypatch):
+    orig = swin._attention
+    monkeypatch.setattr(swin, "_attention",
+                        lambda x, params, b, heads, window, shift, dtype:
+                        orig(x, params, b, heads, window, 0, dtype))
+
+
+def _mask_dropped(monkeypatch):
+    orig = swin.window_attention
+    monkeypatch.setattr(swin, "window_attention",
+                        lambda q, k, v, table, window, scale, regions:
+                        orig(q, k, v, table, window, scale, None))
+
+
+@pytest.mark.parametrize("broken", [_bias_dropped, _no_shift, _mask_dropped],
+                         ids=["bias_dropped", "no_shift", "mask_dropped"])
+def test_a_broken_block_leaves_the_tolerance(case, monkeypatch, broken):
+    """The mechanism faults: (a) the table dropped, (b) no shift (neither
+    roll nor mask), (c) the roll kept and the mask dropped."""
+    cfg, params, images, _, ref, _ = case
+    broken(monkeypatch)
+    assert pyramid_gap(port_pyramid(params, images, cfg), ref) > \
+        100 * PYRAMID_ATOL
+
+
+# --------------------------------------------------------------------------
+# The attention, the mask and the bias index against the equations
+# --------------------------------------------------------------------------
+
+def labels_by_definition(hp, wp, window, shift):
+    """The rolled padded map's region of each position: rows and columns
+    in [0, n - window), [n - window, n - shift), [n - shift, n)."""
+    def band(r, n):
+        return 0 if r < n - window else 1 if r < n - shift else 2
+    return [[band(r, hp) * 3 + band(c, wp) for c in range(wp)]
+            for r in range(hp)]
+
+
+def naive_window_attention(q, k, v, table, window, scale, labels=None):
+    """(b, windows, heads, T, d); per window, head, query (i, j) and key
+    (k, l): scale q.k + table[(i - k + w - 1)(2w - 1) + (j - l + w - 1),
+    head], -100 where the window's `labels` (windows, T) differ, softmax,
+    times v. float64."""
+    b, nw, heads, t, _ = q.shape
+    q, k, v, table = (x.double() for x in (q, k, v, table))
+    out = torch.zeros_like(v)
+    side = 2 * window - 1
+    for w in range(nw):
+        for h in range(heads):
+            for a in range(t):
+                i, j = divmod(a, window)
+                logits = torch.zeros((b, t), dtype=torch.float64)
+                for s in range(t):
+                    kk, ll = divmod(s, window)
+                    row = (i - kk + window - 1) * side + (j - ll + window - 1)
+                    logits[:, s] = (scale * (q[:, w, h, a] * k[:, w, h, s])
+                                    .sum(-1) + table[row, h])
+                    if labels is not None and labels[w][a] != labels[w][s]:
+                        logits[:, s] -= 100.0
+                out[:, w, h, a] = torch.einsum(
+                    "bs,bsd->bd", torch.softmax(logits, -1), v[:, w, h])
+    return out
+
+
+def window_labels(labels, window):
+    """(Hp, Wp) nested lists -> per window (row-major), its tokens'
+    labels row-major."""
+    hp, wp = len(labels), len(labels[0])
+    return [[labels[y0 + i][x0 + j] for i in range(window)
+             for j in range(window)]
+            for y0 in range(0, hp, window) for x0 in range(0, wp, window)]
+
+
+def test_regions_and_bias_index_are_the_definitions():
+    for (hp, wp), window, shift in (((6, 9), 3, 1), ((14, 7), 7, 3),
+                                    ((70, 70), 7, 3)):
+        got = shift_regions((hp, wp), window, shift, torch.device("cpu"))
+        want = window_labels(labels_by_definition(hp, wp, window, shift),
+                             window)
+        assert got.tolist() == want
+    for window in (3, 7):
+        idx = A.relative_index(window, torch.device("cpu"))
+        side = 2 * window - 1
+        for a in range(window * window):
+            for s in range(window * window):
+                (i, j), (k, l) = divmod(a, window), divmod(s, window)
+                assert int(idx[a, s]) == \
+                    (i - k + window - 1) * side + (j - l + window - 1)
+
+
+@pytest.mark.parametrize("route", ["plain", "card_layout"])
+@pytest.mark.parametrize("shifted", [False, True], ids=["plain", "shifted"])
+def test_window_attention_is_the_equations(shifted, route):
+    """Window 3 on a 6x9 padded map (six windows), shift 1, two heads of 8:
+    the plain route, and the card route's folded mask and layouts (run
+    here in float32 through SDPA's CPU path, without the card route's pin
+    to the memory-efficient kernel, which the CPU lacks)."""
+    g = torch.Generator().manual_seed(1)
+    window, heads, d = 3, 2, 8
+    q, k, v = (torch.randn((2, 6, heads, 9, d), generator=g)
+               for _ in range(3))
+    table = torch.rand((25, heads), generator=g) * 3 - 1.5
+    regions = (shift_regions((6, 9), window, 1, torch.device("cpu"))
+               if shifted else None)
+    fn = A.window_attention if route == "plain" else A._window_sdpa
+    got = fn(q, k, v, table, window, d ** -0.5, regions)
+    labels = (window_labels(labels_by_definition(6, 9, window, 1), window)
+              if shifted else None)
+    want = naive_window_attention(q, k, v, table, window, d ** -0.5, labels)
+    assert float((got.double() - want).abs().max()) <= 1e-5
+    wrong = naive_window_attention(q, k, v, table.flip(0), window,
+                                   d ** -0.5, labels)
+    assert float((got.double() - wrong).abs().max()) > 1e-2
+
+
+def naive_block(x, params, b, heads, window, shift):
+    """x + proj(attn(LN1(x))) from the equations: LN1(x) zero-padded to a
+    multiple of the window, rolled by (-shift, -shift), each window's
+    tokens (padding too) through qkv, `naive_window_attention` with the
+    regions of the rolled map, proj, rolled back, the padding cropped."""
+    bsz, h, w, c = x.shape
+    y = F.layer_norm(x, (c,), params[b + "norm1"]["scale"],
+                     params[b + "norm1"]["bias"], 1e-5)
+    hp, wp = -(-h // window) * window, -(-w // window) * window
+    y = torch.roll(F.pad(y, (0, 0, 0, wp - w, 0, hp - h)), (-shift, -shift),
+                   (1, 2))
+    labels = labels_by_definition(hp, wp, window, shift)
+    out = torch.zeros((bsz, hp, wp, c))
+    d = c // heads
+    for y0 in range(0, hp, window):
+        for x0 in range(0, wp, window):
+            t = y[:, y0:y0 + window, x0:x0 + window].reshape(bsz, -1, c)
+            qkv = t @ params[b + "attn_qkv"]["kernel"] + \
+                params[b + "attn_qkv"]["bias"]
+            q, k, v = qkv.view(bsz, 1, -1, 3, heads, d).permute(
+                3, 0, 1, 4, 2, 5)
+            lab = [[labels[y0 + i][x0 + j] for i in range(window)
+                    for j in range(window)]] if shift else None
+            o = naive_window_attention(q, k, v,
+                                       params[b + "attn_rel_pos"]["table"],
+                                       window, d ** -0.5, lab).float()
+            o = o[:, 0].transpose(1, 2).reshape(bsz, -1, c) @ \
+                params[b + "attn_proj"]["kernel"] + \
+                params[b + "attn_proj"]["bias"]
+            out[:, y0:y0 + window, x0:x0 + window] = o.view(bsz, window,
+                                                            window, c)
+    out = torch.roll(out, (shift, shift), (1, 2))
+    return x + out[:, :h, :w]
+
+
+@pytest.mark.parametrize("shift", [0, 1], ids=["plain", "shifted"])
+def test_block_attention_is_the_equations(shift):
+    """A block at width 16, two heads, window 3, on a 5x7 grid (padded to
+    6x9): the padded tokens attend and are attended to, and the roll
+    carries them into the windows of the first rows and columns."""
+    g = torch.Generator().manual_seed(2)
+    b = "swin_s0_b0_"
+    params = {b + "norm1": {"scale": torch.rand(16, generator=g) + 0.5,
+                            "bias": torch.randn(16, generator=g) * 0.1},
+              b + "attn_qkv": {"kernel": torch.randn((16, 48),
+                                                     generator=g) * 0.3,
+                               "bias": torch.randn(48, generator=g)},
+              b + "attn_proj": {"kernel": torch.randn((16, 16),
+                                                      generator=g) * 0.3,
+                                "bias": torch.randn(16, generator=g)},
+              b + "attn_rel_pos": {"table": torch.rand(
+                  (25, 2), generator=g) * 3 - 1.5}}
+    x = torch.randn((2, 5, 7, 16), generator=g)
+    got = swin._attention(x, params, b, 2, 3, shift, torch.float32)
+    want = naive_block(x, params, b, 2, 3, shift)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_shifted_window_round_trip():
+    x = torch.randn((2, 16, 16, 4))
+    for shift in (0, 3):
+        wins, padded = window_partition(x, 7, shift)
+        assert wins.shape == (18, 7, 7, 4) and padded == (21, 21)
+        assert torch.equal(window_unpartition(wins, 7, padded, (16, 16),
+                                              shift), x)
+    wins, _ = window_partition(x, 7, 3)
+    assert torch.equal(wins[0, 0, 0], x[0, 3, 3])     # rolled by (-3, -3)
+    assert float(wins[8, :4, :4].abs().max()) == 0.0   # the padding
+    assert torch.equal(wins[8, 6, 6], x[0, 2, 2])      # wrapped round
+
+
+# --------------------------------------------------------------------------
+# Through the port's entry points
+# --------------------------------------------------------------------------
+
+def test_detector_and_stream_run_swin_on_the_cpu():
+    cfg = config()
+    det = MaskRCNNDetector.from_random(cfg, seed=4, device="cpu")
+    frames = list(stream.synthetic_frames(2, 128, seed=6))
+    out = det.run_batch(np.stack(frames))
+    assert out["detections"].shape == (2, cfg.max_detections, 6)
+    assert bool(torch.isfinite(out["masks"]).all())
+    seen = {}
+    stats = stream.run_stream(det, frames, micro_batch=2, latency_probes=0,
+                              on_result=lambda i, o: seen.update({i: o}))
+    assert stats.frames == 2
+    for key, value in out.items():
+        assert torch.equal(seen[0][key], value), key
+    found = det.detect_images([frames[0][:100, :90]], paste_masks=False)
+    assert len(found) == 1
+
+
+def test_forward_spans_the_swin_inside_backbone_fpn():
+    cfg = config()
+    params = M.init_mask_rcnn(torch.Generator().manual_seed(0), cfg)
+    images = torch.zeros((1, 128, 128, 3), dtype=torch.uint8)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        M.forward(params, images, cfg, device="cpu")
+    counts = {}
+    for e in prof.events():
+        if not e.name.startswith("swin."):
+            continue
+        parent = e.cpu_parent
+        while parent is not None and parent.name != "backbone_fpn":
+            parent = parent.cpu_parent
+        assert parent is not None, e.name
+        counts[e.name] = counts.get(e.name, 0) + 1
+    assert counts == {"swin.patch_embed": 1, "swin.window_attention": 12,
+                      "swin.shifted_window_attention": 12, "swin.mlp": 24,
+                      "swin.patch_merge": 3}
+
+
+def test_config_rejects_an_input_off_the_stride_grid():
+    assert swin.SWIN["swin_s"].widths == (96, 192, 384, 768)
+    with pytest.raises(ValueError, match="backbone stride"):
+        MaskRCNNConfig(architecture="swin_s",
+                       input_image_shape=(1000, 1000, 3))
+    MaskRCNNConfig(architecture="swin_s")
+
+
+def test_weight_files_round_trip(tmp_path):
+    """npz and h5 give the param dict back, the tables and the bias-free
+    reductions included."""
+    pytest.importorskip("h5py")
+    params = M.init_mask_rcnn(torch.Generator().manual_seed(1), config())
+    assert set(params["swin_merge0_reduction"]) == {"kernel"}
+    assert params["swin_s2_b17_attn_rel_pos"]["table"].shape == (169, 12)
+    flat = W.params_to_numpy(params)
+    W.save_npz_checkpoint(params, str(tmp_path / "w.npz"))
+    W.save_h5_weights(params, str(tmp_path / "w.h5"))
+    for loaded in (W.load_npz_checkpoint(str(tmp_path / "w.npz")),
+                   W.load_h5_weights(str(tmp_path / "w.h5"))):
+        assert sorted(loaded) == sorted(flat)
+        for layer, weights in flat.items():
+            assert sorted(loaded[layer]) == sorted(weights), layer
+            for name, arr in weights.items():
+                assert np.array_equal(loaded[layer][name], arr), (layer, name)
+
+
+def test_training_raises_naming_the_architecture():
+    from maskrcnn_tpu_torch.train.data import synthetic_train_batch
+    from maskrcnn_tpu_torch.train.step import (compute_losses,
+                                               draw_uniforms)
+    cfg = config()
+    params = M.init_mask_rcnn(torch.Generator().manual_seed(2), cfg)
+    batch = synthetic_train_batch(cfg, 1, "cpu")
+    anchors = M.anchor_table(cfg, torch.device("cpu"))
+    draws = draw_uniforms(torch.Generator().manual_seed(0), 1,
+                          cfg.num_anchors, cfg.max_proposals + 8, "cpu")
+    with pytest.raises(ValueError, match="swin_s"):
+        compute_losses(params, batch, anchors, cfg, draws)
