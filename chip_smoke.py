@@ -55,7 +55,11 @@ Phases, each printing one JSON line, any failure ends the run non-zero
            stream bit for bit, the LayerNorm output within one bf16 ulp
            of its largest term (`ln_ulp_share`: the share that differs),
            with `ms`, `plain_ms`, the bytes bound and the kernel's device
-           time with L2 cold
+           time with L2 cold; the same at `swin_s.batch8`'s shapes
+           (VE_swin1_*: stage 1, 96 channels on 256x256, windows of 7
+           padded to 259 and shifted by 3; VE_swin3_*: stage 3, 384 on
+           64x64, plain and shifted windows and the stage's output norm),
+           a windowed output's pad rows zero (`pad_rows_zero`)
   native   the host native library (`maskrcnn_tpu_torch/native`, g++ at
            first use): which of librle, libimageio (with or without its
            libjpeg entry points) and libevalmatch loaded, the build
@@ -163,13 +167,13 @@ Phases, each printing one JSON line, any failure ends the run non-zero
            threshold 0 (a main path, counted as above: the ViT epilogue
            48 times a forward, K1 and K2, never K3, K4 or the conv
            epilogue), the forward's time and profile; the ViT epilogue
-           must run on no other path
+           must run on no path but this and swin
   swin     Swin-S @ 1024^2, 81 classes, bf16, random weights from the
            seed: `run_batch` at `swin_s.batch8`'s batch 8 and score
-           threshold 0 (a main path: K1 and K2, never K3, K4, the conv
-           or the ViT epilogue; 24 calls of `ops/attention.py`'s card
-           route a forward and none of its plain route), the forward's
-           time and profile
+           threshold 0 (a main path: the ViT epilogue 96 times a forward,
+           K1 and K2, never K3, K4 or the conv epilogue; 24 calls of
+           `ops/attention.py`'s card route a forward and none of its
+           plain route), the forward's time and profile
   export   `io/export.py`: the R101-FPN @ 1024^2 forward exported on the
            card at batch 1 (trace seconds, program bytes), reloaded in this
            process (a main path: K1-K4) and in a new one, each within 1e-4
@@ -947,6 +951,28 @@ VE_ROWS = (("VE_qkv", "bias", 0, "attn_qkv", True, None, False),
             "vit_b2_norm1", False),
            ("VE_fc2_windowed", "residual", 0, "mlp_fc2", False,
             "vit_b1_norm1", True))
+# The same at `swin_s.batch8`'s shapes (batch 8, 1024^2, windows of 7):
+# (row, stage, form, block, dense layer, y in the windows, the LayerNorm
+# after it, in the windows, the windows' shift). Stage 1: 96 channels on a
+# 256x256 grid (4 lanes a row), its shifted block 1 (proj read from the
+# rolled windows, fc2 of block 0 writing block 1's LN1 into them); stage
+# 3: 384 channels on 64x64 (16 lanes), a plain block and the stage's
+# output norm after its last
+VE_SWIN_ROWS = (
+    ("VE_swin1_qkv", 0, "bias", 1, "attn_qkv", True, None, False, 3),
+    ("VE_swin1_fc1", 0, "bias_gelu", 1, "mlp_fc1", False, None, False, 0),
+    ("VE_swin1_proj_shifted", 0, "residual", 1, "attn_proj", True,
+     "swin_s0_b1_norm2", False, 3),
+    ("VE_swin1_fc2_to_shifted", 0, "residual", 0, "mlp_fc2", False,
+     "swin_s0_b1_norm1", True, 3),
+    ("VE_swin3_qkv", 2, "bias", 0, "attn_qkv", True, None, False, 0),
+    ("VE_swin3_fc1", 2, "bias_gelu", 0, "mlp_fc1", False, None, False, 0),
+    ("VE_swin3_proj", 2, "residual", 0, "attn_proj", True,
+     "swin_s2_b0_norm2", False, 0),
+    ("VE_swin3_fc2_to_shifted", 2, "residual", 0, "mlp_fc2", False,
+     "swin_s2_b1_norm1", True, 3),
+    ("VE_swin3_fc2_stage_norm", 2, "residual", 17, "mlp_fc2", False,
+     "swin_norm2", False, 0))
 # float operations an element: the bias add; GELU's three multiplies, add
 # and erf (counted as 8); the residual add and the LayerNorm's sum,
 # deviation, square, sum and normalised multiply-add
@@ -958,102 +984,132 @@ VE_OPS = {"bias": 1, "bias_gelu": 13, "residual": 8}
 VE_LN_ULP_SHARE = 1e-3
 
 
+def ve_row(dev, dg, name, form, dense, geometry, norm_name, y_win,
+           norm_win, shift, eps, layer):
+    """One VE row: the form on `dense`'s constants at `geometry` (batch,
+    grid side, window, residual width), inputs and a LayerNorm drawn from
+    `dg`, against the plain version; see `check_vit_epilogue`."""
+    from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
+    from maskrcnn_tpu_torch.ops.common import window_partition
+    b, grid, win, c = geometry
+    nwin = b * (-(-grid // win)) ** 2
+    dense = {k: t.to(dev) for k, t in dense.items()}
+    consts = ve.prepare(dense)
+    cout = consts.bias.shape[0]
+    shape = ((nwin, win * win, cout) if y_win and form == "bias" else
+             (nwin, win, win, cout) if y_win else (b, grid, grid, cout))
+    y = (torch.randn(shape, generator=dg, device=dev) * 2).to(torch.bfloat16)
+    x = torch.randn((b, grid, grid, c), generator=dg, device=dev) * 4
+    norm = None if norm_name is None else {
+        "scale": torch.rand(c, generator=dg, device=dev) + 0.5,
+        "bias": torch.randn(c, generator=dg, device=dev) * 0.2}
+    kw = {"window": win if y_win or norm_win else 0,
+          "norm_windowed": norm_win, "shift": shift}
+    fn = {"bias": ve.BIAS, "bias_gelu": ve.BIAS_GELU,
+          "residual": ve.BIAS_RESIDUAL_NORM}[form]
+    if form == "bias":
+        call = lambda: [ve.bias(y, consts)]
+    elif form == "bias_gelu":
+        call = lambda: [ve.bias_gelu(y, consts)]
+    else:
+        call = lambda: [t for t in ve.bias_residual_norm(
+            y, consts, x, norm, eps, **kw) if t is not None]
+    scale = None if norm is None else norm["scale"]
+    beta = None if norm is None else norm["bias"]
+    plain = lambda: ve.epilogue_plain(
+        y, consts.bias, fn, x if form == "residual" else None, scale,
+        beta, kw["window"], kw["norm_windowed"], eps,
+        shift if kw["window"] else 0)
+    got, want = call(), plain()
+    first = (torch.equal(got[0].view(torch.int16),
+                         want[0].view(torch.int16))
+             if got[0].dtype == torch.bfloat16 else
+             torch.equal(got[0].view(torch.int32),
+                         want[0].view(torch.int32)))
+    ulp_max, ulp_share, pads_zero = 0.0, 0.0, None
+    if len(got) > 1:
+        # in bf16 ulps at the magnitude of the LayerNorm's largest
+        # term (the output, gamma * x_hat or beta): where gamma * x_hat
+        # and beta cancel, an ulp of difference in the float32
+        # statistics moves the small output by many of its own ulps
+        g1, w1 = got[1].float(), want[1].float()
+        x_hat = F.layer_norm(want[0], (c,), eps=eps)
+        if norm_win:
+            x_hat, _ = window_partition(x_hat, win, shift)
+            pads = window_partition(torch.ones((b, grid, grid, 1),
+                                               device=dev), win,
+                                    shift)[0][..., 0] == 0
+            pads_zero = bool(float(got[1][pads].abs().max()) == 0.0)
+        big = torch.maximum(torch.maximum(g1.abs(), w1.abs()),
+                            torch.maximum((scale * x_hat).abs(),
+                                          beta.abs().expand_as(x_hat)))
+        ulp_max = float(((g1 - w1).abs() / bf16_ulp(big)).max())
+        ulp_share = float((g1 != w1).float().mean())
+        del x_hat, big
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(got, want))
+    ms = cuda_ms(call, 20)
+    cold = device_ms_l2_cold(call, "vit_epilogue")
+    # the elements of y the kernel reads: a windowed proj output's pad
+    # tokens are skipped
+    read = (b * grid * grid * cout if form == "residual" else y.numel())
+    moved = read * y.element_size() + nbytes(
+        dense["bias"].to(torch.bfloat16), *got) + (
+        nbytes(x) + (2 * nbytes(scale) if norm else 0)
+        if form == "residual" else 0)
+    bnd = bound(moved, float(read * VE_OPS[form]), F32_FLOPS)
+    row = record(
+        name, "cuda", "maskrcnn_tpu_torch/csrc/vit_epilogue.cu",
+        "none (the JAX package leaves these layers to XLA)", ms,
+        cuda_ms(plain, 5), err, 0.0, bnd, None,
+        {"device_ms_l2_cold": cold,
+         "share_of_bound_l2_cold": cold and bnd[0] / cold,
+         "shape": list(y.shape), "layer": layer, "norm": norm_name,
+         "norm_in_windows": norm_win, "window_shift": shift,
+         "lanes_a_row": c // 24 if form == "residual" else None,
+         "bytes": moved, "bit_equal": first,
+         "ln_ulp_max": ulp_max, "ln_ulp_share": ulp_share,
+         "pad_rows_zero": pads_zero, **kernels_per_call(call)},
+        ok=(first and ulp_max <= 1.0 and ulp_share <= VE_LN_ULP_SHARE
+            and pads_zero is not False))
+    del y, x, got, want
+    return row
+
+
 def check_vit_epilogue(dev, seed):
     """The ViT epilogue's forms at `vitdet_b.batch8`'s shapes on ViT-B
-    constants from the seed (LayerNorms drawn off the identity) against
+    constants from the seed (VE_ROWS) and at `swin_s.batch8`'s on Swin-S
+    constants (VE_SWIN_ROWS; LayerNorms drawn off the identity) against
     their plain version (the layers' op sequence) on the same inputs: the
     bias, GELU and x' bit for bit, the LayerNorm output within one bf16
     ulp of its largest term (`ln_ulp_max`) with at most VE_LN_ULP_SHARE of
-    its elements differing (`ln_ulp_share`). `bound_ms` is the bytes the
-    kernel reads and writes at the HBM rate (of y in the windows, proj's
-    pass reads only the grid's tokens); each map is larger than L2, and
-    `device_ms_l2_cold` is the kernel's own time (profiler) after L2 is
-    flushed."""
-    from maskrcnn_tpu_torch.models import vit
-    from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
+    its elements differing (`ln_ulp_share`), a windowed output's pad rows
+    zero. `bound_ms` is the bytes the kernel reads and writes at the HBM
+    rate (of y in the windows, proj's pass reads only the grid's tokens);
+    each map is larger than L2, and `device_ms_l2_cold` is the kernel's
+    own time (profiler) after L2 is flushed."""
+    from maskrcnn_tpu_torch.models import swin, vit
     gen = torch.Generator().manual_seed(seed)
     params = vit.init_vit(gen, "vitdet_b", (1024, 1024))
-    b, grid, win, c = 8, 64, 14, 768
-    nwin = b * 25
     dg = torch.Generator(device=dev).manual_seed(seed)
     rows = []
     for name, form, block, layer, y_win, norm_name, norm_win in VE_ROWS:
-        dense = {k: t.to(dev) for k, t in
-                 params[f"vit_b{block}_{layer}"].items()}
-        consts = ve.prepare(dense)
-        cout = consts.bias.shape[0]
-        shape = ((nwin, win * win, cout) if y_win and form == "bias" else
-                 (nwin, win, win, cout) if y_win else (b, grid, grid, cout))
-        y = (torch.randn(shape, generator=dg, device=dev) * 2).to(
-            torch.bfloat16)
-        x = torch.randn((b, grid, grid, c), generator=dg, device=dev) * 4
-        norm = None if norm_name is None else {
-            "scale": torch.rand(c, generator=dg, device=dev) + 0.5,
-            "bias": torch.randn(c, generator=dg, device=dev) * 0.2}
-        kw = {"window": win if y_win or norm_win else 0,
-              "norm_windowed": norm_win}
-        fn = {"bias": ve.BIAS, "bias_gelu": ve.BIAS_GELU,
-              "residual": ve.BIAS_RESIDUAL_NORM}[form]
-        if form == "bias":
-            call = lambda: [ve.bias(y, consts)]
-        elif form == "bias_gelu":
-            call = lambda: [ve.bias_gelu(y, consts)]
-        else:
-            call = lambda: [t for t in ve.bias_residual_norm(
-                y, consts, x, norm, vit.LN_EPS, **kw) if t is not None]
-        scale = None if norm is None else norm["scale"]
-        shift = None if norm is None else norm["bias"]
-        plain = lambda: ve.epilogue_plain(
-            y, consts.bias, fn, x if form == "residual" else None, scale,
-            shift, kw["window"], kw["norm_windowed"], vit.LN_EPS)
-        got, want = call(), plain()
-        first = (torch.equal(got[0].view(torch.int16),
-                             want[0].view(torch.int16))
-                 if got[0].dtype == torch.bfloat16 else
-                 torch.equal(got[0].view(torch.int32),
-                             want[0].view(torch.int32)))
-        ulp_max, ulp_share = 0.0, 0.0
-        if len(got) > 1:
-            # in bf16 ulps at the magnitude of the LayerNorm's largest
-            # term (the output, gamma * x_hat or beta): where gamma * x_hat
-            # and beta cancel, an ulp of difference in the float32
-            # statistics moves the small output by many of its own ulps
-            g1, w1 = got[1].float(), want[1].float()
-            x_hat = F.layer_norm(want[0], (c,), eps=vit.LN_EPS)
-            if norm_win:
-                x_hat, _ = vit.window_partition(x_hat, win)
-            big = torch.maximum(torch.maximum(g1.abs(), w1.abs()),
-                                torch.maximum((scale * x_hat).abs(),
-                                              shift.abs().expand_as(x_hat)))
-            ulp_max = float(((g1 - w1).abs() / bf16_ulp(big)).max())
-            ulp_share = float((g1 != w1).float().mean())
-            del x_hat, big
-        err = max(float((a.float() - w.float()).abs().max())
-                  for a, w in zip(got, want))
-        ms = cuda_ms(call, 20)
-        cold = device_ms_l2_cold(call, "vit_epilogue")
-        # the elements of y the kernel reads: a windowed proj output's pad
-        # tokens are skipped
-        read = (b * grid * grid * cout if form == "residual" else
-                y.numel())
-        moved = read * y.element_size() + nbytes(
-            dense["bias"].to(torch.bfloat16), *got) + (
-            nbytes(x) + (2 * nbytes(scale) if norm else 0)
-            if form == "residual" else 0)
-        bnd = bound(moved, float(read * VE_OPS[form]), F32_FLOPS)
-        rows.append(record(
-            name, "cuda", "maskrcnn_tpu_torch/csrc/vit_epilogue.cu",
-            "none (the JAX package leaves these layers to XLA)", ms,
-            cuda_ms(plain, 5), err, 0.0, bnd, None,
-            {"device_ms_l2_cold": cold,
-             "share_of_bound_l2_cold": cold and bnd[0] / cold,
-             "shape": list(y.shape), "layer": f"vit_b{block}_{layer}",
-             "norm": norm_name, "norm_in_windows": norm_win,
-             "bytes": moved, "bit_equal": first,
-             "ln_ulp_max": ulp_max, "ln_ulp_share": ulp_share,
-             **kernels_per_call(call)},
-            ok=first and ulp_max <= 1.0 and ulp_share <= VE_LN_ULP_SHARE))
-        del y, x, got, want
+        rows.append(ve_row(dev, dg, name, form,
+                           params[f"vit_b{block}_{layer}"], (8, 64, 14, 768),
+                           norm_name, y_win, norm_win, 0, vit.LN_EPS,
+                           f"vit_b{block}_{layer}"))
+    params = swin.init_swin(gen, "swin_s")
+    spec = swin.SWIN["swin_s"]
+    for (name, stage, form, block, layer, y_win, norm_name, norm_win,
+         shift) in VE_SWIN_ROWS:
+        c = spec.widths[stage]
+        dense = params[f"swin_s{stage}_b{block}_{layer}"]
+        dense = {"kernel": dense["kernel"],
+                 "bias": torch.randn(dense["bias"].shape, generator=gen)}
+        rows.append(ve_row(dev, dg, name, form, dense,
+                           (8, 1024 // 4 >> stage, spec.window, c),
+                           norm_name, y_win, norm_win, shift, swin.LN_EPS,
+                           f"swin_s{stage}_b{block}_{layer}"))
     torch.cuda.empty_cache()
     return rows
 
@@ -3292,11 +3348,13 @@ def serve_probe_checks(dev, rng, batch, params) -> dict:
 
 
 # Swin-S's forward: `swin_s.batch8`'s batch; one card attention call a
-# block (2 + 2 + 18 + 2), K1 and K2 (the unfused heads), no hand-written
-# pass in the backbone
+# block (2 + 2 + 18 + 2), the ViT epilogue's passes (4 a block, a stage's
+# first LN1 the layers'), K1 and K2 (the unfused heads), never a ResNet
+# kernel
 SWIN_BATCH = 8
 SWIN_ATTENTION_CALLS = 24
-SWIN_NEVER = RESNET_ONLY + ("conv_epilogue", "vit_epilogue")
+SWIN_PASSES = 96
+SWIN_NEVER = RESNET_ONLY + ("conv_epilogue",)
 
 
 def swin(dev, seed, base, batch=SWIN_BATCH):
@@ -3304,8 +3362,8 @@ def swin(dev, seed, base, batch=SWIN_BATCH):
     score threshold (0), random weights from the seed: `run_batch` on
     `batch` canvases, one forward (a main path: counts zeroed just before,
     read just after; SWIN_ATTENTION_CALLS card attention calls and no
-    plain one, K1 and K2, never SWIN_NEVER), then the forward's time and
-    profile."""
+    plain one, SWIN_PASSES ViT epilogue passes, K1 and K2, never
+    SWIN_NEVER), then the forward's time and profile."""
     from maskrcnn_tpu_torch.models import mask_rcnn as M
     from maskrcnn_tpu_torch.ops import attention, cuda_lib
     from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
@@ -3346,6 +3404,9 @@ def swin(dev, seed, base, batch=SWIN_BATCH):
     if calls != {"card": SWIN_ATTENTION_CALLS, "plain": 0}:
         problems.append(f"attention calls {calls} in one forward, not "
                         f"{SWIN_ATTENTION_CALLS} on the card route")
+    if launches["vit_epilogue"] != SWIN_PASSES:
+        problems.append(f"{launches['vit_epilogue']} ViT epilogue passes "
+                        f"in one forward, not {SWIN_PASSES}")
     missing = [k for k in MNV2_KERNELS if launches[k] == 0]
     extra = [k for k in SWIN_NEVER if launches[k]]
     if missing or extra:
@@ -3460,13 +3521,16 @@ def main() -> int:
               "K5": "roi_classifier_head", "K6": "roi_mask_head",
               "EP": "conv_epilogue", "VE": "vit_epilogue"}
     stray = {p: n["vit_epilogue"] for p, n in by_path.items()
-             if p != "vitdet" and n.get("vit_epilogue")}
+             if p not in ("vitdet", "swin") and n.get("vit_epilogue")}
     if stray:
-        raise AssertionError(f"the ViT epilogue ran off ViTDet-B: {stray}")
+        raise AssertionError(f"the ViT epilogue ran off ViTDet-B and "
+                             f"Swin-S: {stray}")
     for row in rows:
         key = family[row["name"][:2]]
         row["launches"] = (launches_stream if key in ("roi_classifier_head",
                                                       "roi_mask_head")
+                           else by_path["swin"] if row["name"].startswith(
+                               "VE_swin")
                            else by_path["vitdet"] if key == "vit_epilogue"
                            else launches)[key]
         row["launches_by_path"] = {p: n[key] for p, n in by_path.items()}

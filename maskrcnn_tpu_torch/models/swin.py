@@ -37,6 +37,20 @@ make); linears and the patch conv run in the compute dtype with the output
 rounded to it and the bias added in it; GELU runs on the compute dtype's
 values; attention is `ops/attention.py`'s. The float32 route is the plain
 reference's arithmetic.
+
+On the card in bf16 the blocks take the fused route (`_attention_fused`,
+`_mlp_fused`), as `models/vit.py`'s: the four linears are `torch.matmul` on
+bf16 kernels and biases prepared once per parameter set, each finished by
+one `vit_epilogue` pass (`ops/vit_epilogue_cuda.py`): the bias after qkv;
+after proj the bias and the residual add, proj's output read in the
+block's rolled, padded windows and x' written in the grid, with LN2; bias
+and GELU after fc1; after fc2 the bias and residual add with the next
+block's LN1 written straight into that block's rolled, padded windows (pad
+rows zero), or after a stage's last block the stage's output norm in the
+grid (the bf16 C2..C5). A stage's first block keeps the layers' LN1 (after
+the patch embedding or a merge); the merges and the patch norm are the
+layers'. The bias, GELU and residual stream are the layers' bit for bit,
+a LayerNorm output within one bf16 ulp.
 """
 
 from __future__ import annotations
@@ -48,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from maskrcnn_tpu_torch.models import nn
+from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
 from maskrcnn_tpu_torch.ops.attention import window_attention
 from maskrcnn_tpu_torch.ops.common import (shift_regions, window_partition,
                                            window_unpartition)
@@ -72,6 +87,12 @@ class SwinSpec(NamedTuple):
 SWIN = {"swin_s": SwinSpec(embed=96, depths=(2, 2, 18, 2),
                            heads=(3, 6, 12, 24), window=7, mlp_ratio=4,
                            patch=4)}
+
+
+def _shift(spec: SwinSpec, j: int) -> int:
+    """Block `j`'s window shift: half a window, rounded down, in odd
+    blocks."""
+    return spec.window // 2 if j % 2 else 0
 
 
 def _ln_init(c: int) -> nn.Params:
@@ -115,6 +136,21 @@ def layer_norm(x: torch.Tensor, p: nn.Params) -> torch.Tensor:
                         p["bias"].float(), LN_EPS)
 
 
+def _attend(qkv, params, b: str, heads: int, window: int, shift: int,
+            padded):
+    """(B, windows, window^2, 3 C) qkv of the block whose layers start with
+    `b` over its (Hp, Wp) padded map -> the heads' attention in each
+    window, (B * windows, window, window, C), before proj."""
+    c = qkv.shape[-1] // 3
+    q, k, v = qkv.view(*qkv.shape[:3], 3, heads, c // heads).permute(
+        3, 0, 1, 4, 2, 5).unbind(0)
+    regions = (shift_regions(padded, window, shift, qkv.device) if shift
+               else None)
+    o = window_attention(q, k, v, params[b + "attn_rel_pos"]["table"],
+                         window, (c // heads) ** -0.5, regions)
+    return o.transpose(2, 3).reshape(-1, window, window, c)
+
+
 def _attention(x, params, b: str, heads: int, window: int, shift: int,
                dtype):
     """x + proj(attn(LN1(x))) of the block whose layers start with `b`,
@@ -122,16 +158,9 @@ def _attention(x, params, b: str, heads: int, window: int, shift: int,
     bsz, h, w, c = x.shape
     y, padded = window_partition(layer_norm(x, params[b + "norm1"])
                                  .to(dtype), window, shift)
-    t = window * window
-    qkv = nn.dense(y.view(bsz, -1, t, c), params[b + "attn_qkv"],
-                   dtype=dtype)
-    q, k, v = qkv.view(*qkv.shape[:3], 3, heads, c // heads).permute(
-        3, 0, 1, 4, 2, 5).unbind(0)
-    regions = (shift_regions(padded, window, shift, x.device) if shift
-               else None)
-    o = window_attention(q, k, v, params[b + "attn_rel_pos"]["table"],
-                         window, (c // heads) ** -0.5, regions)
-    o = nn.dense(o.transpose(2, 3).reshape(-1, window, window, c),
+    qkv = nn.dense(y.view(bsz, -1, window * window, c),
+                   params[b + "attn_qkv"], dtype=dtype)
+    o = nn.dense(_attend(qkv, params, b, heads, window, shift, padded),
                  params[b + "attn_proj"], dtype=dtype)
     return x + window_unpartition(o, window, padded, (h, w), shift).float()
 
@@ -141,6 +170,39 @@ def _mlp(x, params, b: str, dtype):
                  dtype=dtype)
     y = nn.dense(F.gelu(y), params[b + "mlp_fc2"], dtype=dtype)
     return x + y.float()
+
+
+def _attention_fused(x, y, params, b: str, heads: int, window: int,
+                     shift: int):
+    """`_attention` on the card in bf16, and LN2 of its result: (x', LN2(x')
+    in bf16). `y` is LN1(x) in bf16 in the block's rolled, padded windows,
+    from the previous block's fc2 pass; None for a stage's first block,
+    whose LN1 is the layers'."""
+    bsz, h, w, c = x.shape
+    if y is None:
+        y, _ = window_partition(layer_norm(x, params[b + "norm1"])
+                                .to(torch.bfloat16), window, shift)
+    padded = (-(-h // window) * window, -(-w // window) * window)
+    qkv, proj = (ve.prepare(params[b + name])
+                 for name in ("attn_qkv", "attn_proj"))
+    o = _attend(ve.bias(y.view(bsz, -1, window * window, c) @ qkv.kernel,
+                        qkv), params, b, heads, window, shift, padded)
+    return ve.bias_residual_norm(o @ proj.kernel, proj, x,
+                                 params[b + "norm2"], LN_EPS, window=window,
+                                 shift=shift)
+
+
+def _mlp_fused(x, y, params, b: str, norm, window: int, shift: int):
+    """`_mlp` on the card in bf16 from `y` = LN2(x) in bf16, and the
+    LayerNorm `norm` of its result: (x', the next block's LN1 in bf16 in
+    its rolled, padded windows of side `window`, shifted by `shift`), or
+    with `window` 0 (x', the stage's output norm in bf16 in the grid)."""
+    fc1, fc2 = (ve.prepare(params[b + name]) for name in ("mlp_fc1",
+                                                          "mlp_fc2"))
+    hidden = ve.bias_gelu(y @ fc1.kernel, fc1)
+    return ve.bias_residual_norm(hidden @ fc2.kernel, fc2, x, norm, LN_EPS,
+                                 window=window, norm_windowed=bool(window),
+                                 shift=shift)
 
 
 def _merge(x, params, s: int, dtype):
@@ -159,28 +221,45 @@ def apply_swin(params, images: torch.Tensor, architecture: str,
     `swin.patch_embed`; per block `swin.window_attention` or
     `swin.shifted_window_attention` (args `stage`, `windows` an image,
     `tokens` a window) and `swin.mlp`; `swin.patch_merge` after stages
-    1-3."""
+    1-3. On the fused route a block's LN2 is computed inside its attention
+    span, and the next block's LN1 or the stage's output norm inside its
+    `swin.mlp` span."""
     spec = SWIN[architecture]
     with stage("swin.patch_embed"):
         x = nn.conv2d(images.to(dtype), params["swin_patch_embed"],
                       stride=spec.patch, padding="VALID", dtype=dtype)
         x = layer_norm(x, params["swin_patch_norm"])
+    fused = all(ve.epilogue_supported(x, dtype, c) for c in spec.widths)
     outs = []
     for s, (depth, heads) in enumerate(zip(spec.depths, spec.heads)):
         windows = (math.ceil(x.shape[1] / spec.window)
                    * math.ceil(x.shape[2] / spec.window))
+        y = None        # a stage's first LN1 is the layers'
         for j in range(depth):
             b = f"swin_s{s}_b{j}_"
-            shift = spec.window // 2 if j % 2 else 0
+            shift = _shift(spec, j)
             name = ("swin.shifted_window_attention" if shift
                     else "swin.window_attention")
             with stage(name, stage=s + 1, windows=windows,
                        tokens=spec.window ** 2):
-                x = _attention(x, params, b, heads, spec.window, shift,
-                               dtype)
+                if fused:
+                    x, y = _attention_fused(x, y, params, b, heads,
+                                            spec.window, shift)
+                else:
+                    x = _attention(x, params, b, heads, spec.window, shift,
+                                   dtype)
             with stage("swin.mlp"):
-                x = _mlp(x, params, b, dtype)
-        outs.append(layer_norm(x, params[f"swin_norm{s}"]).to(dtype))
+                if fused and j + 1 < depth:
+                    x, y = _mlp_fused(x, y, params, b,
+                                      params[f"swin_s{s}_b{j + 1}_norm1"],
+                                      spec.window, _shift(spec, j + 1))
+                elif fused:
+                    x, y = _mlp_fused(x, y, params, b,
+                                      params[f"swin_norm{s}"], 0, 0)
+                else:
+                    x = _mlp(x, params, b, dtype)
+        outs.append(y if fused else
+                    layer_norm(x, params[f"swin_norm{s}"]).to(dtype))
         if s + 1 < len(spec.depths):
             with stage("swin.patch_merge"):
                 x = _merge(x, params, s, dtype)

@@ -125,7 +125,7 @@ def _declare(lib) -> None:
                            i, i, i, i, i, i, i, p],
         "mrt_conv_epilogue": [p] * 9 + [i, i, i, p],
         "mrt_vit_epilogue": [p, p, p, i, i, i, p],
-        "mrt_vit_epilogue_norm": [p] * 7 + [i] * 6 + [f, p],
+        "mrt_vit_epilogue_norm": [p] * 7 + [i] * 7 + [f, p],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)

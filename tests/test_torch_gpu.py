@@ -25,8 +25,8 @@ from maskrcnn_tpu_torch.ops import (bottleneck_cuda, conv_epilogue_cuda,
 from maskrcnn_tpu_torch.ops.nms import _compact
 from tests.torch_support import (EDGE_ROIS, NMS_KINDS, chain_case,
                                  epilogue_case, head_case, live_bn, nms_case,
-                                 resnet_case, roi_case, stage_params,
-                                 stem_params)
+                                 off_identity, resnet_case, roi_case,
+                                 stage_params, stem_params)
 
 
 def _card():
@@ -602,10 +602,11 @@ def test_gpu_resnet_epilogue_path_bit_equal_to_layers(monkeypatch, arch,
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,passes", [("resnet101", 81), ("resnet50", 30),
                                          ("mobilenetv2", 0),
-                                         ("vitdet_b", 0)])
+                                         ("vitdet_b", 0), ("swin_s", 0)])
 def test_gpu_forward_conv_epilogue_launches(arch, passes):
     """One bf16 forward on the card launches the pass once a ResNet
-    layer-path conv but the shortcut's; MobileNetV2 and ViTDet never."""
+    layer-path conv but the shortcut's; MobileNetV2, ViTDet and Swin
+    never."""
     from maskrcnn_tpu_torch.models import mask_rcnn as M
     dev = _card()
     cfg = _tiny(architecture=arch)
@@ -663,10 +664,12 @@ def vit_epilogue_case(case, dev, seed=0):
     return form, y, dense, x, (None if norm_at is None else norm), kw
 
 
-def vit_layers(form, y, dense, x, norm, window, norm_windowed):
-    """`models/vit.py`'s layers on the raw output: `nn.dense`'s bias add,
-    `F.gelu`, `window_unpartition`, the float32 residual add,
-    `layer_norm`, `window_partition` and the cast the next linear takes."""
+def vit_layers(form, y, dense, x, norm, window, norm_windowed, shift=0,
+               eps=1e-6):
+    """`models/vit.py`'s and `models/swin.py`'s layers on the raw output:
+    `nn.dense`'s bias add, `F.gelu`, `window_unpartition`, the float32
+    residual add, `layer_norm`, `window_partition` (Swin's windows rolled
+    by `shift`) and the cast the next linear takes."""
     from maskrcnn_tpu_torch.models import vit
     t = y + dense["bias"].to(y.dtype)
     if form == "bias":
@@ -674,31 +677,33 @@ def vit_layers(form, y, dense, x, norm, window, norm_windowed):
     if form == "bias_gelu":
         return [torch.nn.functional.gelu(t)]
     if window and not norm_windowed:
-        pad = -(-VIT_GRID // window) * window
-        t = vit.window_unpartition(t, window, (pad, pad),
-                                   (VIT_GRID, VIT_GRID))
+        hw = tuple(x.shape[1:3])
+        pad = tuple(-(-n // window) * window for n in hw)
+        t = vit.window_unpartition(t, window, pad, hw, shift)
     x = x + t.float()
     if norm is None:
         return [x]
-    n = vit.layer_norm(x, norm)
+    n = torch.nn.functional.layer_norm(x, (x.shape[-1],), norm["scale"],
+                                       norm["bias"], eps)
     if window and norm_windowed:
-        n, _ = vit.window_partition(n, window)
+        n, _ = vit.window_partition(n, window, shift)
     return [x, n.to(torch.bfloat16)]
 
 
-def run_vit_epilogue(form, y, dense, x, norm, window, norm_windowed):
+def run_vit_epilogue(form, y, dense, x, norm, window, norm_windowed,
+                     shift=0, eps=1e-6):
     from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
     consts = ve.prepare(dense)
     if form == "bias":
         return [ve.bias(y, consts)]
     if form == "bias_gelu":
         return [ve.bias_gelu(y, consts)]
-    x, n = ve.bias_residual_norm(y, consts, x, norm, 1e-6, window=window,
-                                 norm_windowed=norm_windowed)
+    x, n = ve.bias_residual_norm(y, consts, x, norm, eps, window=window,
+                                 norm_windowed=norm_windowed, shift=shift)
     return [x] if n is None else [x, n]
 
 
-def ln_ulps(got, want, x, norm, window):
+def ln_ulps(got, want, x, norm, window, shift=0, eps=1e-6):
     """|got - want| of a LayerNorm output in bf16 ulps at the magnitude of
     its largest term, elementwise: the output, gamma * x_hat or beta
     (x_hat = LN(x) without scale and shift, in the output's layout). Where
@@ -707,9 +712,9 @@ def ln_ulps(got, want, x, norm, window):
     of its own ulps, though by less than one of the terms'."""
     from maskrcnn_tpu_torch.models import vit
     got, want = got.float(), want.float()
-    x_hat = torch.nn.functional.layer_norm(x, (x.shape[-1],), eps=1e-6)
+    x_hat = torch.nn.functional.layer_norm(x, (x.shape[-1],), eps=eps)
     if window:
-        x_hat, _ = vit.window_partition(x_hat, window)
+        x_hat, _ = vit.window_partition(x_hat, window, shift)
     big = torch.maximum(torch.maximum(got.abs(), want.abs()),
                         torch.maximum((norm["scale"] * x_hat).abs(),
                                       norm["bias"].abs().expand_as(x_hat)))
@@ -766,7 +771,7 @@ def test_gpu_vit_epilogue_matches_layers(case):
 @pytest.mark.gpu
 def test_gpu_vit_epilogue_refuses_what_it_cannot_take():
     """The wrapper raises on channels that are not a multiple of 8, a
-    residual width other than the LayerNorm form's 768, a float32 or a
+    residual width outside the LayerNorm form's set, a float32 or a
     non-contiguous input, a y whose layout does not fit x and a windowed
     LayerNorm output without the LayerNorm; the launch on an input off a
     16-byte boundary: no fallback on the card."""
@@ -781,7 +786,8 @@ def test_gpu_vit_epilogue_refuses_what_it_cannot_take():
         x = torch.randn((1, 4, 4, width), device=dev)
         dense = ve.DenseConstants(None, torch.zeros(width, device=dev,
                                                     dtype=bf))
-        with pytest.raises(ValueError, match="width of 768"):
+        with pytest.raises(ValueError,
+                           match="width of 96, 192, 384 or 768"):
             ve.bias_residual_norm(x.to(bf), dense, x)
     x = torch.randn((1, 4, 4, 768), device=dev)
     dense = ve.DenseConstants(None, torch.zeros(768, device=dev, dtype=bf))
@@ -820,6 +826,177 @@ def test_gpu_vit_epilogue_op_never_takes_the_plain_version(monkeypatch):
         assert all(t.is_cuda for t in out)
     torch.cuda.synchronize()
     assert cuda_lib.launches["vit_epilogue"] == 4
+
+
+# Swin-S's stages at `swin_s.batch8`'s shapes: batch 8, 1024^2, windows of
+# 7; width -> grid side (256, 128, 64 and 32, padded to 259, 133, 70, 35)
+SWIN_B, SWIN_WINDOW = 8, 7
+SWIN_GRIDS = {96: 256, 192: 128, 384: 64, 768: 32}
+# where the residual form's windowed side lies: y (proj's output read in
+# the block's windows), the LayerNorm output (fc2's pass writing the next
+# block's LN1), or neither (the grid, whatever the shift)
+SWIN_LAYOUTS = ("y_windows", "norm_windows", "grid")
+
+
+def swin_epilogue_case(width, shift, layout, dev, seed=0):
+    """At a Swin-S stage of `width`: qkv's raw output over the padded
+    windows and fc1's over the grid (bf16, -0.0 and infinities among
+    them), the residual form's y in the layout, their dense layers
+    {kernel, bias} (float32), the float32 stream x and a LayerNorm, with
+    the residual form's arguments."""
+    grid = SWIN_GRIDS[width]
+    side = -(-grid // SWIN_WINDOW)
+    nwin = SWIN_B * side * side
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def raw(shape, specials):
+        y = (torch.randn(shape, generator=g, device=dev) * 2).to(
+            torch.bfloat16)
+        if specials:
+            y.view(-1)[:4] = torch.tensor([-0.0, float("inf"),
+                                           float("-inf"), 0.0])
+        return y
+
+    def dense(c):
+        return {"kernel": torch.randn((width, c), generator=g, device=dev),
+                "bias": torch.randn(c, generator=g, device=dev)}
+
+    qkv = (raw((nwin, SWIN_WINDOW ** 2, 3 * width), True), dense(3 * width))
+    fc1 = (raw((SWIN_B, grid, grid, 4 * width), True), dense(4 * width))
+    y = raw((nwin, SWIN_WINDOW, SWIN_WINDOW, width) if layout == "y_windows"
+            else (SWIN_B, grid, grid, width), False)
+    x = torch.randn((SWIN_B, grid, grid, width), generator=g,
+                    device=dev) * 4
+    norm = {"scale": torch.rand(width, generator=g, device=dev) + 0.5,
+            "bias": torch.randn(width, generator=g, device=dev) * 0.2}
+    kw = {"window": 0 if layout == "grid" else SWIN_WINDOW,
+          "norm_windowed": layout == "norm_windows", "shift": shift,
+          "eps": 1e-5}
+    return qkv, fc1, (y, dense(width), x, norm), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", SWIN_LAYOUTS)
+@pytest.mark.parametrize("shift", [0, 3], ids=["plain", "shifted"])
+@pytest.mark.parametrize("width", sorted(SWIN_GRIDS))
+def test_gpu_vit_epilogue_matches_layers_at_swin_shapes(width, shift,
+                                                        layout):
+    """The pass at a Swin-S stage's width (4, 8, 16 or 32 lanes a row) and
+    `swin_s.batch8`'s grid, plain or shifted windows, against the layers'
+    op sequence (`models/swin.py`'s eps 1e-5): the qkv bias over the
+    padded windows and fc1's bias and GELU bit for bit; the residual form
+    with proj's output read in the rolled windows, the next LN1 written
+    into them, or both sides in the grid: x' bit for bit, the LayerNorm
+    output within one bf16 ulp of its largest term (at most LN_ULP_SHARE
+    of it differing), the pad rows zero; three launches."""
+    from maskrcnn_tpu_torch.models import vit
+    from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
+    dev = _card()
+    qkv, fc1, (y, dense, x, norm), kw = swin_epilogue_case(
+        width, shift, layout, dev, seed=width + shift)
+    cuda_lib.reset_launches()
+    got_qkv = ve.bias(qkv[0], ve.prepare(qkv[1]))
+    got_fc1 = ve.bias_gelu(fc1[0], ve.prepare(fc1[1]))
+    got = run_vit_epilogue("residual", y, dense, x, norm, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["vit_epilogue"] == 3
+    for out, (raw, layer), form in ((got_qkv, qkv, "bias"),
+                                    (got_fc1, fc1, "bias_gelu")):
+        want = vit_layers(form, raw, layer, None, None, 0, False)[0]
+        assert torch.equal(_bits(out), _bits(want))
+    want = vit_layers("residual", y, dense, x, norm, **kw)
+    assert [(t.shape, t.dtype) for t in got] == \
+        [(t.shape, t.dtype) for t in want]
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    windows = kw["window"] if kw["norm_windowed"] else 0
+    ulps = ln_ulps(got[1], want[1], want[0], norm, windows, shift, 1e-5)
+    share = float((got[1] != want[1]).float().mean())
+    print(f"{width} {layout} shift {shift}: LayerNorm output differs in "
+          f"{share:.3e} of the elements, by at most {float(ulps.max())} "
+          f"ulp of its largest term")
+    assert float(ulps.max()) <= 1.0 and share <= LN_ULP_SHARE
+    if kw["norm_windowed"]:
+        ones = torch.ones((SWIN_B, *x.shape[1:3], 1), device=dev)
+        pads = vit.window_partition(ones, SWIN_WINDOW, shift)[0][..., 0] == 0
+        assert pads.any() and float(got[1][pads].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [48, 120, 256, 1024, 1536])
+def test_gpu_vit_epilogue_refuses_a_width_outside_the_set(width):
+    """The residual form raises on a width outside (96, 192, 384, 768),
+    a multiple of 24 or of 8 alike, and on a window shift outside [0,
+    window): no fallback on the card."""
+    from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
+    dev = _card()
+    bf = torch.bfloat16
+    x = torch.randn((1, 9, 9, width), device=dev)
+    dense = ve.DenseConstants(None, torch.zeros(width, device=dev, dtype=bf))
+    with pytest.raises(ValueError, match="width of 96, 192, 384 or 768"):
+        ve.bias_residual_norm(x.to(bf), dense, x)
+    x = torch.randn((1, 9, 9, 96), device=dev)
+    dense = ve.DenseConstants(None, torch.zeros(96, device=dev, dtype=bf))
+    norm = {"scale": torch.ones(96, device=dev),
+            "bias": torch.zeros(96, device=dev)}
+    for shift in (-1, 7):
+        with pytest.raises(ValueError, match="window shift"):
+            ve.bias_residual_norm(x.to(bf), dense, x, norm, window=7,
+                                  norm_windowed=True, shift=shift)
+
+
+def swin_params_case(dev, side=1024, b=2, seed=13):
+    """Swin-S's parameters on `dev` with LayerNorms and biases drawn off
+    their init and bias tables of +-1.5 (as the benchmark's), and
+    mean-subtracted images at `side`^2."""
+    from maskrcnn_tpu_torch.models import swin
+    g = torch.Generator().manual_seed(seed)
+    params = off_identity(swin.init_swin(g, "swin_s"), g)
+    params = {k: {w: t.to(dev) for w, t in p.items()}
+              for k, p in params.items()}
+    images = (torch.rand((b, side, side, 3), generator=g) * 255 - 120)
+    return params, images.to(dev)
+
+
+# The fused Swin-S against the layers on the card, over C2..C5 (each a
+# stage's output LayerNorm): as VIT_FORWARD_TOL, a LayerNorm output one
+# bf16 ulp off moves the next linear's input, through up to 18 blocks
+SWIN_FORWARD_TOL = 2 ** -4
+
+
+@pytest.mark.gpu
+def test_gpu_swin_fused_route_matches_layers(monkeypatch):
+    """`apply_swin` at 1024^2, batch 2, in bf16 on the card: the fused route
+    (96 passes: 4 a block, a stage's first LN1 the layers'; 24 card
+    attention calls) against the layers (gate closed, no pass) over
+    C2..C5, within SWIN_FORWARD_TOL of the largest output; the largest
+    and mean differences printed."""
+    from maskrcnn_tpu_torch.models import swin
+    from maskrcnn_tpu_torch.ops import attention
+    from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
+    dev = _card()
+    params, images = swin_params_case(dev)
+    cuda_lib.reset_launches()
+    attention.reset_calls()
+    with torch.no_grad():
+        got = swin.apply_swin(params, images, "swin_s")
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["vit_epilogue"] == 96
+    assert attention.calls == {"card": 24, "plain": 0}
+    monkeypatch.setattr(ve, "epilogue_supported", lambda *a: False)
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        want = swin.apply_swin(params, images, "swin_s")
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["vit_epilogue"] == 0
+    for level, (gt, w) in enumerate(zip(got, want), 2):
+        assert gt.dtype == w.dtype == torch.bfloat16
+        assert gt.shape == w.shape
+        big = float(w.float().abs().max())
+        err = (gt.float() - w.float()).abs()
+        print(f"C{level}: largest difference {float(err.max()):.4e}, mean "
+              f"{float(err.mean()):.4e}, largest output {big:.4e}")
+        assert float(err.max()) <= SWIN_FORWARD_TOL * big
+        assert float(err.mean()) <= SWIN_FORWARD_TOL / 10 * big
 
 
 def vit_case(dev, side=1024, b=2, seed=11):
@@ -887,10 +1064,11 @@ def test_gpu_vit_fused_route_matches_layers(monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,passes", [("vitdet_b", 48), ("resnet101", 0),
-                                         ("mobilenetv2", 0)])
+                                         ("mobilenetv2", 0), ("swin_s", 96)])
 def test_gpu_forward_vit_epilogue_launches(arch, passes):
     """One bf16 forward on the card launches the ViT epilogue four times a
-    ViT-B block but block 0's LN1 (48); R101 and MobileNetV2 never."""
+    ViT-B block but block 0's LN1 (48), four times a Swin-S block (96);
+    R101 and MobileNetV2 never."""
     from maskrcnn_tpu_torch.models import mask_rcnn as M
     dev = _card()
     cfg = _tiny(architecture=arch)

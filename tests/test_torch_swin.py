@@ -24,12 +24,14 @@ from benchmark.weights import make_params
 from maskrcnn_tpu_torch.core.config import MaskRCNNConfig, tiny_test_config
 from maskrcnn_tpu_torch.io import weights as W
 from maskrcnn_tpu_torch.models import mask_rcnn as M
+from maskrcnn_tpu_torch.models import nn
 from maskrcnn_tpu_torch.models import swin
 from maskrcnn_tpu_torch.ops import attention as A
 from maskrcnn_tpu_torch.ops.common import (shift_regions, window_partition,
                                            window_unpartition)
 from maskrcnn_tpu_torch.pipeline import stream
 from maskrcnn_tpu_torch.pipeline.detector import MaskRCNNDetector
+from tests.torch_support import off_identity
 from tests.torch_support import one_thread  # noqa: F401  (autouse)
 
 SEED = 2 ** 31 + 23
@@ -301,6 +303,116 @@ def test_shifted_window_round_trip():
     assert torch.equal(wins[0, 0, 0], x[0, 3, 3])     # rolled by (-3, -3)
     assert float(wins[8, :4, :4].abs().max()) == 0.0   # the padding
     assert torch.equal(wins[8, 6, 6], x[0, 2, 2])      # wrapped round
+
+
+# --------------------------------------------------------------------------
+# The fused route (`vit_epilogue` passes) through the op's plain version
+# --------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _stage_blocks(g, c, heads, s, blocks):
+    """`blocks` blocks of stage `s` at width `c` and the stage's output
+    norm, under `init_swin`'s layer names."""
+    params = {}
+    for j in range(blocks):
+        b = f"swin_s{s}_b{j}_"
+        params[b + "norm1"] = swin._ln_init(c)
+        params[b + "attn_qkv"] = nn.dense_init(g, c, 3 * c)
+        params[b + "attn_rel_pos"] = {"table": torch.zeros((169, heads))}
+        params[b + "attn_proj"] = nn.dense_init(g, c, c)
+        params[b + "norm2"] = swin._ln_init(c)
+        params[b + "mlp_fc1"] = nn.dense_init(g, c, 4 * c)
+        params[b + "mlp_fc2"] = nn.dense_init(g, 4 * c, c)
+    params[f"swin_norm{s}"] = swin._ln_init(c)
+    return off_identity(params, g)
+
+
+@pytest.mark.parametrize("s", range(4), ids=[f"stage{s + 1}"
+                                             for s in range(4)])
+def test_fused_blocks_equal_the_layers_on_the_cpu(s):
+    """Three blocks of stage `s` at Swin-S's width and heads (plain,
+    shifted, plain windows) on a 9x11 grid in bf16, through
+    `_attention_fused` / `_mlp_fused` (the `vit_epilogue` op's plain
+    version on the CPU) against `_attention` / `_mlp` and the stage's
+    output norm: each block's stream, the LN1 each fc2 pass writes into
+    the next block's rolled, padded windows (pad rows zero), and the last
+    block's output norm in the grid, bit for bit."""
+    spec = swin.SWIN["swin_s"]
+    c, heads = spec.widths[s], spec.heads[s]
+    g = torch.Generator().manual_seed(30 + s)
+    params = _stage_blocks(g, c, heads, s, 3)
+    x = torch.randn((2, 9, 11, c), generator=g) * 2
+    shifts = [swin._shift(spec, j) for j in range(3)]
+    assert shifts == [0, 3, 0]
+    want, got, y = x, x, None
+    for j, shift in enumerate(shifts):
+        b = f"swin_s{s}_b{j}_"
+        want = swin._attention(want, params, b, heads, 7, shift, BF16)
+        got, y = swin._attention_fused(got, y, params, b, heads, 7, shift)
+        assert torch.equal(got, want)
+        assert torch.equal(y, swin.layer_norm(want, params[b + "norm2"])
+                           .to(BF16))
+        want = swin._mlp(want, params, b, BF16)
+        if j + 1 < len(shifts):
+            nxt = params[f"swin_s{s}_b{j + 1}_norm1"]
+            got, y = swin._mlp_fused(got, y, params, b, nxt, 7,
+                                     shifts[j + 1])
+            ln1, _ = window_partition(swin.layer_norm(want, nxt).to(BF16),
+                                      7, shifts[j + 1])
+            pads = window_partition(torch.ones((2, 9, 11, 1)), 7,
+                                    shifts[j + 1])[0][..., 0] == 0
+            assert pads.any() and float(y[pads].abs().max()) == 0.0
+        else:
+            got, y = swin._mlp_fused(got, y, params, b,
+                                     params[f"swin_norm{s}"], 0, 0)
+            ln1 = swin.layer_norm(want, params[f"swin_norm{s}"]).to(BF16)
+        assert torch.equal(got, want)
+        assert y.dtype == BF16 and torch.equal(y, ln1)
+
+
+def test_cpu_swin_keeps_the_layers_and_the_opened_gate_fuses(monkeypatch):
+    """On the CPU `apply_swin` runs the layers and never the fused route
+    (the parity tests against the reference stand on it). With the gate
+    opened, Swin-S at 64^2 (grids 16, 8, 4, 2) in bf16 takes the fused
+    route through the op's plain version: four passes a block (96; a
+    stage's first LN1 the layers'), and C2..C5 equal to the layers' bit
+    for bit."""
+    from maskrcnn_tpu_torch.ops import cuda_lib
+    from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
+    g = torch.Generator().manual_seed(9)
+    params = off_identity(swin.init_swin(g, "swin_s"), g)
+    images = torch.randn((2, 64, 64, 3), generator=g) * 50
+    fused = (swin._attention_fused, swin._mlp_fused)
+
+    def refuse(*a, **k):
+        raise AssertionError("fused route taken on the CPU")
+
+    monkeypatch.setattr(swin, "_attention_fused", refuse)
+    monkeypatch.setattr(swin, "_mlp_fused", refuse)
+    cuda_lib.reset_launches()
+    want = swin.apply_swin(params, images, "swin_s", BF16)
+    monkeypatch.setattr(swin, "_attention_fused", fused[0])
+    monkeypatch.setattr(swin, "_mlp_fused", fused[1])
+    monkeypatch.setattr(ve, "epilogue_supported",
+                        lambda x, dtype, width: True)
+    calls = []
+    op = ve._epilogue_op
+
+    def counted(*a):
+        calls.append(a[2])
+        return op(*a)
+
+    monkeypatch.setattr(ve, "_epilogue_op", counted)
+    got = swin.apply_swin(params, images, "swin_s", BF16)
+    assert not any(cuda_lib.launches.values())
+    assert calls == [ve.BIAS, ve.BIAS_RESIDUAL_NORM, ve.BIAS_GELU,
+                     ve.BIAS_RESIDUAL_NORM] * 24
+    assert [tuple(o.shape) for o in got] == [(2, 16, 16, 96), (2, 8, 8, 192),
+                                            (2, 4, 4, 384), (2, 2, 2, 768)]
+    for gt, w in zip(got, want):
+        assert gt.dtype == BF16 and torch.equal(gt, w)
 
 
 # --------------------------------------------------------------------------

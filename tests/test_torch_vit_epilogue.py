@@ -1,9 +1,10 @@
 """The ViT epilogue (`ops/vit_epilogue_cuda.py`) on the CPU: its plain
 version against `models/vit.py`'s layer sequence bit for bit in each form
-and both index maps (the grid, and a windowed block's padded windows), its
-constant cache, its op registration, and the CPU forward of `apply_vit`,
-which keeps the layers. The kernel itself is held to the layers on the card
-(`tests/test_torch_gpu.py`, marked `gpu`)."""
+and both index maps (the grid, and a windowed block's padded windows), and
+at Swin-S's widths against `models/swin.py`'s, shifted windows included;
+its constant caches, its op registration, and the CPU forward of
+`apply_vit`, which keeps the layers. The kernel itself is held to the
+layers on the card (`tests/test_torch_gpu.py`, marked `gpu`)."""
 
 import gc
 import types
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from maskrcnn_tpu_torch.models import nn
+from maskrcnn_tpu_torch.models import swin
 from maskrcnn_tpu_torch.models import vit
 from maskrcnn_tpu_torch.ops import cuda_lib
 from maskrcnn_tpu_torch.ops import vit_epilogue_cuda as ve
@@ -51,23 +53,50 @@ CASES = {"qkv_windowed": ("bias", "windows", None),
          "fc2_to_windowed": ("residual", "grid", "windows"),
          "fc2_to_global": ("residual", "grid", "grid"),
          "fc2_last": ("residual", "grid", None)}
+# Swin-S's residual widths on a 9x11 grid in windows of 7 (padded to 14x14,
+# 4 windows an image), at the shifted blocks' shift 3, so the roll carries
+# pad rows into the first windows: case -> (form, where y lies, where the
+# LayerNorm output goes, width, shift)
+SWIN_GRID, SWIN_SHIFT = (9, 11), 3
+SWIN_CASES = {f"swin{c}_{name}": (*CASES[name][:3], c, shift)
+              for c in ve.WIDTHS
+              for name, shift in (("proj_windowed", SWIN_SHIFT),
+                                  ("fc2_to_windowed", SWIN_SHIFT),
+                                  ("fc2_to_global", 0))}
 
 
-@pytest.mark.parametrize("case", list(CASES))
+def _swin_pad_tokens(shift):
+    """True at the pad tokens of the 9x11 grid's rolled, padded windows."""
+    ones = torch.ones((B, *SWIN_GRID, 1))
+    return swin.window_partition(ones, WINDOW, shift)[0][..., 0] == 0
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(SWIN_CASES))
 def test_plain_epilogue_equals_layer_sequence(case):
     """Each form through the op (the plain version on the CPU) equals
     `nn.dense` + `F.gelu` or + `window_unpartition`, the float32 residual
     add, `layer_norm`, `window_partition` and the cast that `nn.dense`
-    gives the next linear, bit for bit."""
-    form, y_at, norm_at = CASES[case]
-    g = torch.Generator().manual_seed(sorted(CASES).index(case))
-    x = torch.randn((B, GRID, GRID, C), generator=g) * 2
-    if y_at == "windows":
-        a = torch.randn((B * NWIN, WINDOW, WINDOW, C), generator=g)
+    gives the next linear, bit for bit; at Swin-S's widths with the
+    shifted blocks' roll (`models/swin.py`'s eps), the pad rows of a
+    windowed LayerNorm output zero."""
+    if case in CASES:
+        form, y_at, norm_at = CASES[case]
+        c, shift, grid, eps = C, 0, (GRID, GRID), vit.LN_EPS
+        seed = sorted(CASES).index(case)
     else:
-        a = torch.randn((B, GRID, GRID, C), generator=g)
-    cout = {"bias": 3 * C, "bias_gelu": 2 * C}.get(form, C)
-    p = _dense(g, C, cout)
+        form, y_at, norm_at, c, shift = SWIN_CASES[case]
+        grid, eps = SWIN_GRID, swin.LN_EPS
+        seed = 100 + sorted(SWIN_CASES).index(case)
+    padded = tuple(-(-n // WINDOW) * WINDOW for n in grid)
+    nwin = padded[0] * padded[1] // WINDOW ** 2
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, *grid, c), generator=g) * 2
+    if y_at == "windows":
+        a = torch.randn((B * nwin, WINDOW, WINDOW, c), generator=g)
+    else:
+        a = torch.randn((B, *grid, c), generator=g)
+    cout = {"bias": 3 * c, "bias_gelu": 2 * c}.get(form, c)
+    p = _dense(g, c, cout)
     want = nn.dense(a, p, dtype=BF16)
     y = _raw(a, p)
     cuda_lib.reset_launches()
@@ -80,23 +109,29 @@ def test_plain_epilogue_equals_layer_sequence(case):
         assert got.dtype == BF16 and torch.equal(got, F.gelu(want))
         return
     if y_at == "windows":
-        want = vit.window_unpartition(want, WINDOW, (21, 21), (GRID, GRID))
+        want = swin.window_unpartition(want, WINDOW, padded, grid, shift)
     want_x = x + want.float()
-    norm = None if norm_at is None else _norm(g, C)
+    norm = None if norm_at is None else _norm(g, c)
     windowed = "windows" in (y_at, norm_at)
     got_x, got_n = ve.bias_residual_norm(
-        y, ve.prepare(p), x, norm, vit.LN_EPS,
-        window=WINDOW if windowed else 0, norm_windowed=norm_at == "windows")
+        y, ve.prepare(p), x, norm, eps, window=WINDOW if windowed else 0,
+        norm_windowed=norm_at == "windows", shift=shift)
     assert got_x.dtype == torch.float32 and torch.equal(got_x, want_x)
     if norm is None:
         assert got_n is None
     else:
-        want_n = vit.layer_norm(want_x, norm)
+        want_n = F.layer_norm(want_x, (c,), norm["scale"], norm["bias"],
+                              eps)
         if norm_at == "windows":
-            want_n, _ = vit.window_partition(want_n, WINDOW)
-            assert want_n.shape == (B * NWIN, WINDOW, WINDOW, C)
-            # the pad rows are zero (rows 20 of each image's last windows)
-            assert float(got_n[NWIN - 1, :, -1].abs().max()) == 0.0
+            want_n, _ = swin.window_partition(want_n, WINDOW, shift)
+            assert want_n.shape == (B * nwin, WINDOW, WINDOW, c)
+            if case in CASES:
+                # rows 20 of each image's last windows
+                assert float(got_n[nwin - 1, :, -1].abs().max()) == 0.0
+            else:
+                pads = _swin_pad_tokens(shift)
+                assert pads[:, 0].any() and pads[:, :, 0].any()
+                assert float(got_n[pads].abs().max()) == 0.0
         assert got_n.dtype == BF16 and torch.equal(got_n, want_n.to(BF16))
     assert not any(cuda_lib.launches.values())
 
@@ -139,34 +174,71 @@ def test_prepared_constants_are_cached_and_follow_the_weights(monkeypatch):
     assert kernel() is None
 
 
+def test_prepared_norms_are_aligned_copies_and_follow_the_weights():
+    """`prepare_norm` of a LayerNorm whose scale and shift are views at an
+    odd float offset of one buffer (the benchmark's weights): float32
+    copies with storage of their own, equal to the views, on a 16-byte
+    boundary, built once; an in-place change prepares anew; and
+    `bias_residual_norm` through it equals the views' LayerNorm."""
+    flat = torch.randn(1 + 2 * 96, generator=torch.Generator().manual_seed(4))
+    norm = {"scale": flat[1:97], "bias": flat[97:]}
+    assert norm["scale"].data_ptr() % 16
+    first = ve.prepare_norm(norm)
+    assert ve.prepare_norm(norm) is first
+    for got, want in zip(first, (norm["scale"], norm["bias"])):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+        assert got.untyped_storage().data_ptr() != flat.data_ptr()
+    norm["scale"].mul_(2)
+    second = ve.prepare_norm(norm)
+    assert second is not first and torch.equal(second.scale, norm["scale"])
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((1, 3, 5, 96), generator=g)
+    p = _dense(g, 96, 96)
+    y = _raw(torch.randn((1, 3, 5, 96), generator=g), p)
+    _, got = ve.bias_residual_norm(y, ve.prepare(p), x, norm, swin.LN_EPS)
+    want = F.layer_norm(x + (y + ve.prepare(p).bias).float(), (96,),
+                        norm["scale"], norm["bias"], swin.LN_EPS)
+    assert torch.equal(got, want.to(BF16))
+
+
+# Swin's windowed cases: the 9x11 grid at shift 3 -> (case, width)
+SWIN_OP_CASES = {f"swin{c}_{case}_shifted": (case, c) for c in (96, 384)
+                 for case in ("residual_windowed", "residual_to_windows")}
+
+
 # the op's arguments after (y, bias): form, x, scale, shift, window,
-# norm_windowed, eps
+# norm_windowed, eps, window_shift
 def _op_args(case):
     g = torch.Generator().manual_seed(5)
-    x = torch.randn((B, GRID, GRID, C), generator=g)
-    norm = _norm(g, C)
+    c, grid, nwin, shift = C, (GRID, GRID), NWIN, 0
+    if case in SWIN_OP_CASES:
+        case, c = SWIN_OP_CASES[case]
+        grid, nwin, shift = SWIN_GRID, 4, SWIN_SHIFT
+    x = torch.randn((B, *grid, c), generator=g)
+    norm = _norm(g, c)
     if case == "bias":
-        return (torch.randn((B, 12, 3 * C), generator=g).to(BF16),
-                torch.randn(3 * C, generator=g).to(BF16), ve.BIAS, None,
-                None, None, 0, False, 0.0)
+        return (torch.randn((B, 12, 3 * c), generator=g).to(BF16),
+                torch.randn(3 * c, generator=g).to(BF16), ve.BIAS, None,
+                None, None, 0, False, 0.0, 0)
     if case == "bias_gelu":
-        return (torch.randn((B, GRID, GRID, 2 * C), generator=g).to(BF16),
-                torch.randn(2 * C, generator=g).to(BF16), ve.BIAS_GELU,
-                None, None, None, 0, False, 0.0)
-    y = torch.randn((B * NWIN, WINDOW, WINDOW, C), generator=g).to(BF16)
-    bias = torch.randn(C, generator=g).to(BF16)
+        return (torch.randn((B, *grid, 2 * c), generator=g).to(BF16),
+                torch.randn(2 * c, generator=g).to(BF16), ve.BIAS_GELU,
+                None, None, None, 0, False, 0.0, 0)
+    y = torch.randn((B * nwin, WINDOW, WINDOW, c), generator=g).to(BF16)
+    bias = torch.randn(c, generator=g).to(BF16)
     if case == "residual_windowed":
         return (y, bias, ve.BIAS_RESIDUAL_NORM, x, norm["scale"],
-                norm["bias"], WINDOW, False, 1e-6)
-    y = torch.randn((B, GRID, GRID, C), generator=g).to(BF16)
+                norm["bias"], WINDOW, False, 1e-6, shift)
+    y = torch.randn((B, *grid, c), generator=g).to(BF16)
     if case == "residual_to_windows":
         return (y, bias, ve.BIAS_RESIDUAL_NORM, x, norm["scale"],
-                norm["bias"], WINDOW, True, 1e-6)
-    return (y, bias, ve.BIAS_RESIDUAL_NORM, x, None, None, 0, False, 1e-6)
+                norm["bias"], WINDOW, True, 1e-6, shift)
+    return (y, bias, ve.BIAS_RESIDUAL_NORM, x, None, None, 0, False, 1e-6, 0)
 
 
 OP_CASES = ("bias", "bias_gelu", "residual_windowed", "residual_to_windows",
-            "residual_only")
+            "residual_only", *SWIN_OP_CASES)
 
 
 @pytest.mark.parametrize("case", OP_CASES)
@@ -240,13 +312,14 @@ def test_cpu_vit_keeps_the_layers(monkeypatch):
 
 
 def test_gate_opens_for_bf16_on_the_card_at_widths_the_pass_takes():
-    """The gate opens only for bf16 on the card at the width the
-    LayerNorm form is built for (ViT-B's 768); a CPU tensor never opens
-    it."""
-    assert ve.WIDTH == 768
+    """The gate opens only for bf16 on the card at the widths the
+    LayerNorm form is built for (Swin-S's 96, 192, 384 and 768, ViT-B's
+    768); a CPU tensor never opens it."""
+    assert ve.WIDTHS == (96, 192, 384, 768)
     assert not ve.epilogue_supported(torch.zeros((1, 4, 4, 768)), BF16, 768)
     card = types.SimpleNamespace(is_cuda=True)
-    assert ve.epilogue_supported(card, BF16, 768)
-    assert not ve.epilogue_supported(card, torch.float32, 768)
-    for width in (256, 512, 640, 1024, 1280, 128):
+    for width in ve.WIDTHS:
+        assert ve.epilogue_supported(card, BF16, width)
+        assert not ve.epilogue_supported(card, torch.float32, width)
+    for width in (256, 512, 640, 1024, 1280, 128, 48, 1536):
         assert not ve.epilogue_supported(card, BF16, width)

@@ -151,6 +151,23 @@ def live_bn(params, gen):
             w["moving_mean"], w["moving_variance"] = u(-0.2, 0.2), u(0.5, 2.0)
 
 
+def off_identity(params, g):
+    """A transformer backbone's {layer: {weight}} with its LayerNorms'
+    scale and shift, its dense biases and its relative-position tables
+    (`table`) drawn from `g` off their init (tables to +-1.5, as the
+    benchmark's Swin weights); in place, and returned."""
+    for name, p in params.items():
+        if "norm" in name:
+            c = p["scale"].shape[0]
+            p["scale"] = torch.rand(c, generator=g) + 0.5
+            p["bias"] = torch.randn(c, generator=g) * 0.2
+        elif "bias" in p:
+            p["bias"] = torch.randn(p["bias"].shape, generator=g) * 0.5
+        if "table" in p:
+            p["table"] = torch.rand(p["table"].shape, generator=g) * 3 - 1.5
+    return params
+
+
 def port_params(config, seed=0):
     """The port's random params, each BN's statistics redrawn from the seed
     so every residual branch is live."""
